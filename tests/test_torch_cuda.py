@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device: a CUDA
+kernel has no CPU mode.  The file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+"""
+import pytest
+import torch
+
+from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
+from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+
+TOL = 2e-4   # tests/test_pallas_mcf.py, tests/test_pallas_unit.py
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _weights(gen, c, hid, hc, kernel, dev):
+    w = torch.randn((hid, c) + kernel, generator=gen) * 0.1
+    w1 = torch.randn(2 * c, hid + hc, generator=gen) * 0.2 / (hid + hc) ** 0.5
+    b1 = torch.randn(2 * c, generator=gen) * 0.05
+    return [a.to(dev) for a in (w, w1, b1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,hc", [(32, 128), (4, 0), (6, 12)])
+def test_k1_kernel_matches_plain(cuda, c, hc):
+    gen = torch.Generator().manual_seed(c)
+    z = torch.randn(8, 8, 8, c, generator=gen).to(cuda)
+    h = torch.randn(8, 8, 8, hc, generator=gen).to(cuda) if hc else None
+    w, w1, b1 = _weights(gen, c, 4 * c, hc, (2, 3), cuda)
+    n0 = k1.mcf_inverse.launches
+    out = k1.mcf_inverse(z, h, w, w1, b1)
+    torch.cuda.synchronize()
+    assert k1.mcf_inverse.launches == n0 + 1
+    ref = k1.mcf_inverse_plain(z, h, w, w1, b1)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,hc", [(32, 128), (4, 0), (6, 12)])
+def test_k2_kernel_matches_plain(cuda, c, hc):
+    gen = torch.Generator().manual_seed(100 + c)
+    y = torch.randn(8, 8, 8, c, generator=gen).to(cuda)
+    h = torch.randn(8, 8, 8, hc, generator=gen).to(cuda) if hc else None
+    weights = [_weights(gen, c, 4 * c, hc, k, cuda) for k in ((2, 3), (2, 3), (3, 2), (3, 2))]
+    an1, an2 = ((torch.randn(2, c, generator=gen) * 0.1).to(cuda) for _ in range(2))
+    n0 = k2.macow_unit_inverse.launches
+    out = k2.macow_unit_inverse(y, h, weights, an1, an2)
+    torch.cuda.synchronize()
+    assert k2.macow_unit_inverse.launches == n0 + 1
+    ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_on_inputs_they_do_not_take(cuda):
+    z = torch.randn(2, 8, 8, 4, device=cuda)
+    w, w1, b1 = _weights(torch.Generator().manual_seed(0), 4, 16, 0, (2, 3), cuda)
+    with pytest.raises(ValueError):
+        k1.mcf_inverse(z.double(), None, w, w1, b1)
+    with pytest.raises(ValueError):
+        k1.mcf_inverse(z.transpose(1, 2), None, w, w1, b1)
+    with pytest.raises(ValueError):
+        k1.mcf_inverse(z, None, w, w1[:, :-1].contiguous(), b1)
