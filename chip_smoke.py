@@ -8,10 +8,13 @@ Phases, each fatal on failure:
              versions; TF32 off for every f32 conv and matmul.
   2. build   nvcc builds both kernels from csrc/, one process each, in
              parallel; registers, shared memory and spills per kernel.
-  3. kernels K1 (one MCF inverse, all four orders) and K2 (a MaCowUnit
-             inverse) against their plain PyTorch versions at the flagship's
-             shapes (B=8, 8x8 latent, C=32 and C=4, with and without h),
-             each timed with CUDA events beside its bound.
+  3. kernels K1 (one MCF inverse, all four orders; C=32 and C=4) and K2 (a
+             MaCowUnit inverse, one thread-block cluster of G CTAs per
+             example; C=32, 4 and 64, at every G it takes) against their
+             plain PyTorch versions at the flagship's shapes (B=8, 8x8
+             latent, with and without h); each timed with CUDA events beside
+             its bound, K2 as a sweep over G at C=32, 16, 4 and 64 (hc=128),
+             and K2 at every flagship level at its planned G.
   4. slice   iper_128 at full width, params synthesised on the card from a
              seed, bf16 decode: a few requests of 8 through forward_sample on
              the default backend 'cuda_unit' (K2, 200 launches per call) and
@@ -27,7 +30,6 @@ from __future__ import annotations
 
 import json
 import re
-import subprocess
 import sys
 import time
 from dataclasses import replace
@@ -47,11 +49,9 @@ from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
 from ipoke_tpu_torch.utils import synth  # noqa: E402
-
-# H100 SXM peaks (NVIDIA data sheet, at 700 W): f32 outside the tensor
-# cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
+    K2_KERNEL, bound, card_line, device_ms, k2_clusters, k2_plan, k2_work, mcf_flops,
+    mcf_params, mcf_weight_floats, sweep_k2, time_ms, unit_inputs, unit_params)
 
 KERNEL_TOL = 2e-4          # tests/test_pallas_mcf.py, tests/test_pallas_unit.py
 BATCH, LATENT, HC = 8, 8, 128
@@ -68,134 +68,79 @@ def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters, warmup=3):
-    """Mean milliseconds per call over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-# ---------------------------------------------------------------------------
-# work of one MCF inverse, counted from its shapes (operations that zero
-# padding skips are not counted; an FMA is 2 operations)
-# ---------------------------------------------------------------------------
-
-def mcf_flops(b, seq, par, c, hid, hc, kseq=2, kpar=3):
-    cp = (kpar - 1) // 2
-    seq_taps = sum(min(i, kseq) for i in range(seq))
-    par_taps = sum(1 for p in range(par) for s in range(kpar) if 0 <= p + s - cp < par)
-    return b * (2 * seq_taps * par_taps * c * hid + 2 * seq * par * 2 * c * (hid + hc))
-
-
-def mcf_weight_floats(c, hid, hc, kseq=2, kpar=3):
-    return hid * c * kseq * kpar + 2 * c * (hid + hc) + 2 * c
-
-
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def mcf_params(gen, c, hc, kernel, device, gain=0.2):
-    """One MCF's params (synth fill, N(0, 0.05)) with output gain ``gain``."""
-    hid = mcf.default_hidden(c)
-    n = lambda *s: (torch.randn(s, generator=gen) * 0.05).to(device)  # noqa: E731
-    return {"net": {"shift_conv": {"w": n(hid, c, *kernel)},
-                    "conv1x1": {"v": n(2 * c, hid + hc, 1, 1),
-                                "g": torch.full((2 * c,), gain, device=device), "b": n(2 * c)}}}
-
-
-def unit_params(gen, c, hc, device):
-    kernels = ((2, 3), (2, 3), (3, 2), (3, 2))
-    p = {f"conv{i + 1}": mcf_params(gen, c, hc, k, device) for i, k in enumerate(kernels)}
-    for an in ("actnorm1", "actnorm2"):
-        p[an] = {k: (torch.randn(c, generator=gen) * 0.05).to(device) for k in ("log_scale", "bias")}
-    return p
-
-
-def phase_kernels(device, card, c_levels=(32, 4), b=BATCH, s=LATENT, hc_full=HC,
+def phase_kernels(device, card, k1_levels=(32, 4), k2_levels=(32, 4, 64),
+                  sweep_levels=(32, 16, 4, 64), b=BATCH, s=LATENT, hc_full=HC,
                   flagship_levels=None):
     """Each kernel against its plain version, and timed, at the flagship's
-    shapes; ``card`` labels the times."""
+    shapes (level 0 is ``k1_levels[0]`` = ``k2_levels[0]``); K2 at every
+    cluster size G it takes, and swept over G; ``card`` labels the times."""
     gen = torch.Generator().manual_seed(0)
-    report = {}
-    for name in ("mcf_inverse", "macow_unit_inverse"):
-        report[name] = {"max_abs_err": 0.0}
-    for c in c_levels:
+    report = {name: {"max_abs_err": 0.0} for name in ("mcf_inverse", "macow_unit_inverse")}
+
+    def check(name, label, out, ref):
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        log(f"kernels: {label}: max |kernel - plain| {err:.3g}")
+        if not err <= KERNEL_TOL * (1 + ref.abs().max().item()):
+            raise SystemExit(f"{label} disagrees with its plain version: {err}")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+    def timed(name, kernel, label, kern, plain, flops, nbytes):
+        ms, ev_ms, plain_ms = device_ms(kern, 100, kernel), time_ms(kern, 100), time_ms(plain, 20)
+        bms, by = bound(flops, nbytes)
+        log(f"kernels [{card}]: {label}: {ms:.4f} ms/launch on the device ({ev_ms:.4f} by "
+            f"events in a loop), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}; "
+            f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
+        report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+    # K1, all four orders through flows.mcf (canonicalised inputs)
+    for c in k1_levels:
         hid = mcf.default_hidden(c)
         for hc in (hc_full, 0):
-            z = (torch.randn(b, s, s, c, generator=gen)).to(device)
+            z = torch.randn(b, s, s, c, generator=gen).to(device)
             h = torch.randn(b, s, s, hc, generator=gen).to(device) if hc else None
-            # K1, all four orders through flows.mcf (canonicalised inputs)
             for order in "ABCD":
                 kernel = (2, 3) if order in "AB" else (3, 2)
                 p = mcf_params(gen, c, hc, kernel, device)
-                out = mcf.inverse(p, z, h, order=order, backend="cuda")
-                ref = mcf.inverse(p, z, h, order=order, backend="scan")
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                log(f"kernels: K1 order {order} C={c} hc={hc}: max |kernel - plain| {err:.3g}")
-                if not err <= KERNEL_TOL * (1 + ref.abs().max().item()):
-                    raise SystemExit(f"K1 disagrees with its plain version: {err}")
-                report["mcf_inverse"]["max_abs_err"] = max(report["mcf_inverse"]["max_abs_err"], err)
-            # K2
-            up = unit_params(gen, c, hc, device)
-            weights = k2.unit_weights(up)
-            an = [torch.stack([up[a]["log_scale"], up[a]["bias"]]) for a in ("actnorm1", "actnorm2")]
-            out = k2.macow_unit_inverse(z, h, weights, *an)
-            ref = k2.macow_unit_inverse_plain(z, h, weights, *an)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            log(f"kernels: K2 C={c} hc={hc}: max |kernel - plain| {err:.3g}")
-            if not err <= KERNEL_TOL * (1 + ref.abs().max().item()):
-                raise SystemExit(f"K2 disagrees with its plain version: {err}")
-            report["macow_unit_inverse"]["max_abs_err"] = max(
-                report["macow_unit_inverse"]["max_abs_err"], err)
+                check("mcf_inverse", f"K1 order {order} C={c} hc={hc}",
+                      mcf.inverse(p, z, h, order=order, backend="cuda"),
+                      mcf.inverse(p, z, h, order=order, backend="scan"))
+            if c == k1_levels[0] and hc == hc_full:   # the level-0 shape of the main path
+                w, w1, b1 = k2.unit_weights(unit_params(gen, c, hc, device))[0]
+                nbytes = 4 * (2 * z.numel() + h.numel() + mcf_weight_floats(c, hid, hc))
+                timed("mcf_inverse", "mcf_inverse_kernel", f"K1 B={b} C={c} hid={hid} hc={hc}",
+                      lambda: k1.mcf_inverse(z, h, w, w1, b1),
+                      lambda: k1.mcf_inverse_plain(z, h, w, w1, b1),
+                      mcf_flops(b, s, s, c, hid, hc), nbytes)
 
-            # timing at this shape, canonical order A for K1
-            w, w1, b1 = weights[0]
-            flops1 = mcf_flops(b, s, s, c, hid, hc)
-            bytes1 = 4 * (2 * z.numel() + (h.numel() if hc else 0) + mcf_weight_floats(c, hid, hc))
-            flops2 = 4 * flops1
-            bytes2 = 4 * (2 * z.numel() + (h.numel() if hc else 0)
-                          + 4 * mcf_weight_floats(c, hid, hc) + 4 * c)
-            rows = (("mcf_inverse", lambda: k1.mcf_inverse(z, h, w, w1, b1),
-                     lambda: k1.mcf_inverse_plain(z, h, w, w1, b1), flops1, bytes1),
-                    ("macow_unit_inverse", lambda: k2.macow_unit_inverse(z, h, weights, *an),
-                     lambda: k2.macow_unit_inverse_plain(z, h, weights, *an), flops2, bytes2))
-            for name, kern, plain, flops, nbytes in rows:
-                ms, plain_ms = time_ms(kern, 200), time_ms(plain, 20)
-                bms, by = bound(flops, nbytes)
-                log(f"kernels [{card}]: {name} B={b} C={c} hid={hid} hc={hc}: {ms:.4f} ms/launch, "
-                    f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}; {flops / 1e6:.1f} MFLOP, "
-                    f"{nbytes / 1e6:.3f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
-                if c == c_levels[0] and hc == hc_full:   # the level-0 shape of the main path
-                    report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-    # K2 at every level of the flagship, for its share of one forward_sample
+    # K2 at every cluster size it takes
+    for c in k2_levels:
+        for hc in (hc_full, 0):
+            weights, an, y, h = unit_inputs(gen, c, hc, b, s, device)
+            ref = k2.macow_unit_inverse_plain(y, h, weights, *an)
+            for g in k2_clusters(c, hc, s):
+                check("macow_unit_inverse", f"K2 C={c} hc={hc} G={g}",
+                      k2.macow_unit_inverse(y, h, weights, *an, cluster=g), ref)
+            if c == k2_levels[0] and hc == hc_full:   # the level-0 shape, at the plan's G
+                g = k2_plan(c, hc, s)
+                timed("macow_unit_inverse", K2_KERNEL, f"K2 B={b} C={c} hc={hc} G={g} (plan)",
+                      lambda: k2.macow_unit_inverse(y, h, weights, *an),
+                      lambda: k2.macow_unit_inverse_plain(y, h, weights, *an), *k2_work(b, s, c, hc))
+                report["macow_unit_inverse"]["cluster"] = g
+
+    # K2's sweep over G at B=8, hc=128
+    report["macow_unit_inverse"]["sweep"] = sweep_k2(device, log, card, sweep_levels, b, s, hc_full)
+
+    # K2 at every level of the flagship at its planned G, for its share of
+    # one forward_sample
     if flagship_levels:
         total = 0.0
         for c, n_steps in flagship_levels:
-            up = unit_params(gen, c, hc_full, device)
-            weights = k2.unit_weights(up)
-            an = [torch.stack([up[a]["log_scale"], up[a]["bias"]]) for a in ("actnorm1", "actnorm2")]
-            z = torch.randn(b, s, s, c, generator=gen).to(device)
-            h = torch.randn(b, s, s, hc_full, generator=gen).to(device)
-            ms = time_ms(lambda: k2.macow_unit_inverse(z, h, weights, *an), 50)
+            weights, an, y, h = unit_inputs(gen, c, hc_full, b, s, device)
+            ms = device_ms(lambda: k2.macow_unit_inverse(y, h, weights, *an), 50, K2_KERNEL)
             total += 4 * n_steps * ms
-            log(f"kernels [{card}]: K2 level C={c}: {ms:.4f} ms/launch x {4 * n_steps} launches")
+            log(f"kernels [{card}]: K2 level C={c} G={k2_plan(c, hc_full, s)}: "
+                f"{ms:.4f} ms/launch on the device x {4 * n_steps} launches")
         log(f"kernels [{card}]: K2 launches of one forward_sample (B={b}) sum to {total:.2f} ms")
         report["macow_unit_inverse"]["per_sample_call_ms"] = total
     return report
@@ -338,6 +283,7 @@ def main():
             ("mcf_inverse", "mcf_inverse", "ipoke_tpu/ops/pallas/mcf_inverse.py:33"),
             ("macow_unit_inverse", "mcf_unit_inverse", "ipoke_tpu/ops/pallas/mcf_unit_inverse.py:44"))
     ]
+    rows[1]["cluster"] = kernels["macow_unit_inverse"]["cluster"]   # K2's G at level 0
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # argument types of each library's launch function
 SIGNATURES = {
     "mcf_inverse": ("mcf_inverse_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
-    "mcf_unit_inverse": ("macow_unit_inverse_launch", [_P] * 17 + [_I] * 8 + [_F, _I, _P]),
+    "mcf_unit_inverse": ("macow_unit_inverse_launch", [_P] * 17 + [_I] * 8 + [_F, _I, _I, _P]),
 }
 
 _LOADED: dict = {}

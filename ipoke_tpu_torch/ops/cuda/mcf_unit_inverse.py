@@ -3,20 +3,22 @@
 Replaces the TPU kernel ``ipoke_tpu/ops/pallas/mcf_unit_inverse.py``
 (``_make_kernel``: ``row_scan`` / ``col_scan`` / ``kernel``; ``_call``;
 ``macow_unit_inverse_pallas``).  CUDA source: ``csrc/mcf_unit_inverse.cu``
-with the scans of ``csrc/mcf_scan.cuh``.
+with the cluster scan of ``csrc/mcf_cluster_scan.cuh``.
 
     actnorm2^-1 -> MCF D^-1 (columns, reverse) -> MCF C^-1 (columns, forward)
     -> actnorm1^-1 -> MCF B^-1 (rows, reverse) -> MCF A^-1 (rows, forward)
 
 Each scan runs in its native orientation with the weights as stored (no flip
-or transpose); the stages pass the latent through two shared-memory buffers.
+or transpose).
 
 What bounds it on the H100: f32 operations, but the 4 x H scan lines are one
 dependent chain, so a launch takes the chain's latency, far above the
-operation bound.  The design gives each example one block (grid = B) and
-keeps every intermediate of the six stages on chip: a unit reads y once and
-writes its result once.  A unit's weights (~640 KB f32 at C=32) exceed shared
-memory, so they are read one MCF at a time from L2/L1.
+operation bound.  The design runs each example on a cluster of G CTAs
+(grid = B * G): the hidden and h channels are split over the G ranks, every
+rank keeps a copy of the latent and its share of each MCF's weights in
+shared memory (staged one MCF ahead by ``cp.async``), and the ranks exchange
+their partial (mu, logs) through distributed shared memory, once per line,
+summed in rank order.  ``cluster_plan`` picks G.
 
 ``macow_unit_inverse`` launches the kernel on CUDA tensors and takes the
 plain version ``macow_unit_inverse_plain`` on CPU tensors only;
@@ -31,6 +33,71 @@ from ipoke_tpu_torch.ops.cuda import _build
 from ipoke_tpu_torch.ops.cuda.mcf_inverse import canonical, mcf_inverse_plain
 
 ORDERS = ("A", "B", "C", "D")   # conv1..conv4 of a MaCowUnit
+CLUSTER_SIZES = (1, 2, 4, 8)    # portable thread-block cluster sizes on sm_90
+MAX_SMEM_BYTES = 232_448        # shared memory one CTA may use on the H100
+
+
+def rank_channels(g, hid, hc):
+    """Per rank of a cluster of ``g``: (its hidden channels, its h channels),
+    as ``range`` objects, the split of ``csrc/mcf_cluster_scan.cuh``."""
+    jg, kg = hid // g, hc // g
+    return [(range(r * jg, (r + 1) * jg), range(r * kg, (r + 1) * kg)) for r in range(g)]
+
+
+def cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width):
+    """Shared memory of one CTA of K2 at cluster size ``g``: the same count as
+    ``cluster_smem_bytes`` in ``csrc/mcf_cluster_scan.cuh``.  Raises
+    ``ValueError`` for a ``g`` that is not a cluster size or does not divide
+    ``hid`` and ``hc``."""
+    if g not in CLUSTER_SIZES or hid % g or hc % g:
+        raise ValueError(f"cluster size {g} is not in {CLUSTER_SIZES} or does not divide "
+                         f"hid {hid} and hc {hc}")
+    jg, kg = hid // g, hc // g
+    ldc = c | 1
+    ldr = (width * ldc) | 1
+    hrs = (width * (kg | 1)) | 1
+    p = max(height, width)
+    slice_ = jg * ((c * kseq * kpar) | 1) + 2 * c * ((jg + kg) | 1) + 2 * c
+    r4 = lambda n: (n + 3) // 4 * 4   # noqa: E731  every region starts on 16 bytes
+    return 4 * (2 * r4(height * ldr) + r4(height * hrs if kg else 0) + r4(p * ((jg + kg) | 1))
+                + r4(2 * p * 2 * c) + 2 * r4(slice_))
+
+
+def allowed_clusters(c, hid, hc, kseq, kpar, height, width):
+    """The cluster sizes K2 takes at these shapes: those of ``CLUSTER_SIZES``
+    that divide ``hid`` and ``hc`` and whose shared memory fits one CTA."""
+    return [g for g in CLUSTER_SIZES if hid % g == 0 and hc % g == 0
+            and cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width) <= MAX_SMEM_BYTES]
+
+
+def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None):
+    """(G, shared bytes per CTA) of K2 for one unit's shapes.
+
+    Rule: the largest G of ``allowed_clusters``.  The kernel's time falls as
+    G grows at every C measured (ms per launch on the device, B=8, hc=128,
+    8x8 latent; NVIDIA H100 80GB HBM3 at 700 W; ``python -m
+    ipoke_tpu_torch.utils.kernel_bench``):
+
+        C=32: G=2 0.319, G=4 0.196, G=8 0.143
+        C=16: G=1 0.244, G=2 0.141, G=4 0.107, G=8 0.093
+        C=4:  G=1 0.098, G=2 0.084, G=4 0.078, G=8 0.077
+        C=64: G=8 0.325 (the only G that fits)
+
+    A larger G shortens each rank's share of a line; the cluster barrier and
+    the distributed-shared-memory reads per line grow slowly with G.  An
+    explicit ``cluster`` is checked instead.  ``ValueError`` for a G that does not divide or does
+    not fit, and when no G fits.
+    """
+    if cluster is None:
+        allowed = allowed_clusters(c, hid, hc, kseq, kpar, height, width)
+        if not allowed:
+            raise ValueError(f"no cluster size in {CLUSTER_SIZES} fits C={c}, hid={hid}, hc={hc}")
+        cluster = allowed[-1]
+    nbytes = cluster_smem_bytes(cluster, c, hid, hc, kseq, kpar, height, width)
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"cluster size {cluster}: {nbytes} bytes of shared memory per CTA "
+                         f"exceed {MAX_SMEM_BYTES} (C={c}, hid={hid}, hc={hc})")
+    return cluster, nbytes
 
 
 def _actnorm_inv(x, an):
@@ -56,8 +123,9 @@ def macow_unit_inverse_plain(y, h, weights, an1, an2, alpha=1.0, act="elu"):
     return mcf(out, "A")
 
 
-def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu"):
-    """K2 on CUDA tensors, its plain version on CPU tensors."""
+def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
+    """K2 on CUDA tensors, its plain version on CPU tensors.  ``cluster``
+    fixes G (the tests and the sweep); by default ``cluster_plan`` picks it."""
     if y.device.type == "cpu":
         return macow_unit_inverse_plain(y, h, weights, an1, an2, alpha, act)
     if y.device.type != "cuda":
@@ -91,11 +159,12 @@ def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu"):
             raise ValueError(f"macow_unit_inverse: {name} {tuple(an.shape)} is not (2, {c})")
     if kpar % 2 == 0:
         raise ValueError(f"macow_unit_inverse: kernel width {kpar} must be odd")
+    g, _ = cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster)
     out = torch.empty_like(y)
     err = _build.load("mcf_unit_inverse")(
         y.data_ptr(), None if h is None else h.data_ptr(), *ptrs, an1.data_ptr(),
         an2.data_ptr(), out.data_ptr(), b, height, width, c, hid, hc, kseq, kpar,
-        float(alpha), _build.ACT_CODES[act], torch.cuda.current_stream(dev).cuda_stream)
+        float(alpha), _build.ACT_CODES[act], g, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("macow_unit_inverse", err)
     macow_unit_inverse.launches += 1
     return out

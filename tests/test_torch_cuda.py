@@ -9,6 +9,8 @@ so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from ipoke_tpu_torch.flows import mcf
+from ipoke_tpu_torch.ops.cuda import _build
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
 
@@ -46,20 +48,68 @@ def test_k1_kernel_matches_plain(cuda, c, hc):
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
 
+def _unit(c, hc, dev, seed, kernel=(2, 3)):
+    gen = torch.Generator().manual_seed(seed)
+    y = torch.randn(8, 8, 8, c, generator=gen).to(dev)
+    h = torch.randn(8, 8, 8, hc, generator=gen).to(dev) if hc else None
+    hid = mcf.default_hidden(c)
+    weights = [_weights(gen, c, hid, hc, k, dev) for k in (kernel, kernel, kernel[::-1], kernel[::-1])]
+    an1, an2 = ((torch.randn(2, c, generator=gen) * 0.1).to(dev) for _ in range(2))
+    return y, h, weights, an1, an2
+
+
+K2_CASES = [(c, hc, g) for c, hc in [(32, 128), (64, 128), (4, 0), (6, 12)] 
+            for g in k2.allowed_clusters(c, mcf.default_hidden(c), hc, 2, 3, 8, 8)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,hc", [(32, 128), (4, 0), (6, 12)])
-def test_k2_kernel_matches_plain(cuda, c, hc):
-    gen = torch.Generator().manual_seed(100 + c)
-    y = torch.randn(8, 8, 8, c, generator=gen).to(cuda)
-    h = torch.randn(8, 8, 8, hc, generator=gen).to(cuda) if hc else None
-    weights = [_weights(gen, c, 4 * c, hc, k, cuda) for k in ((2, 3), (2, 3), (3, 2), (3, 2))]
-    an1, an2 = ((torch.randn(2, c, generator=gen) * 0.1).to(cuda) for _ in range(2))
+@pytest.mark.parametrize("c,hc,g", K2_CASES)
+def test_k2_kernel_matches_plain(cuda, c, hc, g):
+    y, h, weights, an1, an2 = _unit(c, hc, cuda, 100 + c)
     n0 = k2.macow_unit_inverse.launches
-    out = k2.macow_unit_inverse(y, h, weights, an1, an2)
+    out = k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=g)
     torch.cuda.synchronize()
     assert k2.macow_unit_inverse.launches == n0 + 1
     ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,g", [((3, 5), 4), ((1, 3), 2)])
+def test_k2_other_kernel_extents_match_plain(cuda, kernel, g):
+    """Kernel extents other than the registry's 2 x 3 take the kernel's
+    run-time-extent path."""
+    y, h, weights, an1, an2 = _unit(8, 16, cuda, 11, kernel)
+    out = k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=g)
+    torch.cuda.synchronize()
+    ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,hc", [(32, 128), (64, 0)])
+def test_k2_two_launches_are_bitwise_equal(cuda, c, hc):
+    """The partials are summed in rank order, so a launch repeats bit for bit."""
+    y, h, weights, an1, an2 = _unit(c, hc, cuda, 7)
+    a = k2.macow_unit_inverse(y, h, weights, an1, an2)
+    b = k2.macow_unit_inverse(y, h, weights, an1, an2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k2_raises_on_a_cluster_that_does_not_fit(cuda):
+    y, h, weights, an1, an2 = _unit(32, 128, cuda, 3)
+    with pytest.raises(ValueError):   # 1 CTA cannot hold a C=32 unit's slices
+        k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=1)
+    with pytest.raises(ValueError):   # 3 is no cluster size
+        k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=3)
+    # the launcher refuses it on its own, without launching
+    ptrs = [t.data_ptr() for w in weights for t in w]
+    err = _build.load("mcf_unit_inverse")(
+        y.data_ptr(), h.data_ptr(), *ptrs, an1.data_ptr(), an2.data_ptr(), y.data_ptr(),
+        8, 8, 8, 32, 128, 128, 2, 3, 1.0, 0, 1, torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.gpu
