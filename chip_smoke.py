@@ -8,13 +8,14 @@ Phases, each fatal on failure:
              versions; TF32 off for every f32 conv and matmul.
   2. build   nvcc builds both kernels from csrc/, one process each, in
              parallel; registers, shared memory and spills per kernel.
-  3. kernels K1 (one MCF inverse, all four orders; C=32 and C=4) and K2 (a
-             MaCowUnit inverse, one thread-block cluster of G CTAs per
-             example; C=32, 4 and 64, at every G it takes) against their
-             plain PyTorch versions at the flagship's shapes (B=8, 8x8
-             latent, with and without h); each timed with CUDA events beside
-             its bound, K2 as a sweep over G at C=32, 16, 4 and 64 (hc=128),
-             and K2 at every flagship level at its planned G.
+  3. kernels K1 (one MCF inverse, all four orders in their native
+             orientation) and K2 (a MaCowUnit inverse), each one
+             thread-block cluster of G CTAs per example, against their plain
+             PyTorch versions at C=32, 4 and 64 at every G they take, at the
+             flagship's shapes (B=8, 8x8 latent, with and without h); each
+             timed beside its bound at the level-0 shape and its planned G,
+             swept over G at C=32, 16, 4 and 64 (hc=128), and timed at every
+             flagship level at its planned G for its share of one call.
   4. slice   iper_128 at full width, params synthesised on the card from a
              seed, bf16 decode: a few requests of 8 through forward_sample on
              the default backend 'cuda_unit' (K2, 200 launches per call) and
@@ -43,15 +44,14 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from ipoke_tpu_torch import registry  # noqa: E402
-from ipoke_tpu_torch.flows import mcf  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
 from ipoke_tpu_torch.utils import synth  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
-    K2_KERNEL, bound, card_line, device_ms, k2_clusters, k2_plan, k2_work, mcf_flops,
-    mcf_params, mcf_weight_floats, sweep_k2, time_ms, unit_inputs, unit_params)
+    K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
+    k2_clusters, k2_plan, k2_work, mcf_inputs, sweep_k1, sweep_k2, time_ms, unit_inputs)
 
 KERNEL_TOL = 2e-4          # tests/test_pallas_mcf.py, tests/test_pallas_unit.py
 BATCH, LATENT, HC = 8, 8, 128
@@ -68,12 +68,12 @@ def log(msg):
     print(msg, flush=True)
 
 
-def phase_kernels(device, card, k1_levels=(32, 4), k2_levels=(32, 4, 64),
+def phase_kernels(device, card, k1_levels=(32, 4, 64), k2_levels=(32, 4, 64),
                   sweep_levels=(32, 16, 4, 64), b=BATCH, s=LATENT, hc_full=HC,
                   flagship_levels=None):
-    """Each kernel against its plain version, and timed, at the flagship's
-    shapes (level 0 is ``k1_levels[0]`` = ``k2_levels[0]``); K2 at every
-    cluster size G it takes, and swept over G; ``card`` labels the times."""
+    """Each kernel against its plain version at every cluster size G it
+    takes, and timed, at the flagship's shapes (level 0 is ``k1_levels[0]``
+    = ``k2_levels[0]``); each swept over G; ``card`` labels the times."""
     gen = torch.Generator().manual_seed(0)
     report = {name: {"max_abs_err": 0.0} for name in ("mcf_inverse", "macow_unit_inverse")}
 
@@ -93,25 +93,21 @@ def phase_kernels(device, card, k1_levels=(32, 4), k2_levels=(32, 4, 64),
             f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
         report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
-    # K1, all four orders through flows.mcf (canonicalised inputs)
+    # K1 in all four orders, at every cluster size it takes
     for c in k1_levels:
-        hid = mcf.default_hidden(c)
         for hc in (hc_full, 0):
-            z = torch.randn(b, s, s, c, generator=gen).to(device)
-            h = torch.randn(b, s, s, hc, generator=gen).to(device) if hc else None
-            for order in "ABCD":
-                kernel = (2, 3) if order in "AB" else (3, 2)
-                p = mcf_params(gen, c, hc, kernel, device)
-                check("mcf_inverse", f"K1 order {order} C={c} hc={hc}",
-                      mcf.inverse(p, z, h, order=order, backend="cuda"),
-                      mcf.inverse(p, z, h, order=order, backend="scan"))
-            if c == k1_levels[0] and hc == hc_full:   # the level-0 shape of the main path
-                w, w1, b1 = k2.unit_weights(unit_params(gen, c, hc, device))[0]
-                nbytes = 4 * (2 * z.numel() + h.numel() + mcf_weight_floats(c, hid, hc))
-                timed("mcf_inverse", "mcf_inverse_kernel", f"K1 B={b} C={c} hid={hid} hc={hc}",
-                      lambda: k1.mcf_inverse(z, h, w, w1, b1),
-                      lambda: k1.mcf_inverse_plain(z, h, w, w1, b1),
-                      mcf_flops(b, s, s, c, hid, hc), nbytes)
+            for order in k1.ORDERS:
+                z, h, w, w1, b1 = mcf_inputs(gen, c, hc, b, s, order, device)
+                ref = k1.mcf_inverse_plain(z, h, w, w1, b1, order)
+                for g in k1_clusters(c, hc, s):
+                    check("mcf_inverse", f"K1 order {order} C={c} hc={hc} G={g}",
+                          k1.mcf_inverse(z, h, w, w1, b1, order, cluster=g), ref)
+                if c == k1_levels[0] and hc == hc_full and order == "A":
+                    g = k1_plan(c, hc, s)   # the level-0 shape, at the plan's G
+                    timed("mcf_inverse", K1_KERNEL, f"K1 B={b} C={c} hc={hc} order A G={g} (plan)",
+                          lambda: k1.mcf_inverse(z, h, w, w1, b1),
+                          lambda: k1.mcf_inverse_plain(z, h, w, w1, b1), *k1_work(b, s, c, hc))
+                    report["mcf_inverse"]["cluster"] = g
 
     # K2 at every cluster size it takes
     for c in k2_levels:
@@ -128,21 +124,30 @@ def phase_kernels(device, card, k1_levels=(32, 4), k2_levels=(32, 4, 64),
                       lambda: k2.macow_unit_inverse_plain(y, h, weights, *an), *k2_work(b, s, c, hc))
                 report["macow_unit_inverse"]["cluster"] = g
 
-    # K2's sweep over G at B=8, hc=128
+    # the sweeps over G at B=8, hc=128
+    report["mcf_inverse"]["sweep"] = sweep_k1(device, log, card, sweep_levels, b, s, hc_full)
     report["macow_unit_inverse"]["sweep"] = sweep_k2(device, log, card, sweep_levels, b, s, hc_full)
 
-    # K2 at every level of the flagship at its planned G, for its share of
-    # one forward_sample
+    # each kernel at every level of the flagship at its planned G, for its
+    # share of one forward_sample: per MaCowStep, 16 K1 launches (4 of each
+    # order) under 'cuda', 4 K2 launches under 'cuda_unit'
     if flagship_levels:
-        total = 0.0
+        total = {"mcf_inverse": 0.0, "macow_unit_inverse": 0.0}
         for c, n_steps in flagship_levels:
+            mcfs = {o: mcf_inputs(gen, c, hc_full, b, s, o, device) for o in k1.ORDERS}
+            ms1 = device_ms(lambda: [k1.mcf_inverse(*mcfs[o], o) for o in k1.ORDERS], 25, K1_KERNEL)
             weights, an, y, h = unit_inputs(gen, c, hc_full, b, s, device)
-            ms = device_ms(lambda: k2.macow_unit_inverse(y, h, weights, *an), 50, K2_KERNEL)
-            total += 4 * n_steps * ms
-            log(f"kernels [{card}]: K2 level C={c} G={k2_plan(c, hc_full, s)}: "
-                f"{ms:.4f} ms/launch on the device x {4 * n_steps} launches")
-        log(f"kernels [{card}]: K2 launches of one forward_sample (B={b}) sum to {total:.2f} ms")
-        report["macow_unit_inverse"]["per_sample_call_ms"] = total
+            ms2 = device_ms(lambda: k2.macow_unit_inverse(y, h, weights, *an), 50, K2_KERNEL)
+            total["mcf_inverse"] += 16 * n_steps * ms1
+            total["macow_unit_inverse"] += 4 * n_steps * ms2
+            log(f"kernels [{card}]: level C={c}: K1 G={k1_plan(c, hc_full, s)} {ms1:.4f} ms/launch "
+                f"on the device (mean of the four orders) x {16 * n_steps} launches; "
+                f"K2 G={k2_plan(c, hc_full, s)} {ms2:.4f} ms/launch x {4 * n_steps} launches")
+        for name, label, backend in (("mcf_inverse", "K1", "cuda"),
+                                     ("macow_unit_inverse", "K2", "cuda_unit")):
+            log(f"kernels [{card}]: {label} launches of one forward_sample (B={b}, '{backend}') "
+                f"sum to {total[name]:.2f} ms")
+            report[name]["per_sample_call_ms"] = total[name]
     return report
 
 
@@ -283,7 +288,8 @@ def main():
             ("mcf_inverse", "mcf_inverse", "ipoke_tpu/ops/pallas/mcf_inverse.py:33"),
             ("macow_unit_inverse", "mcf_unit_inverse", "ipoke_tpu/ops/pallas/mcf_unit_inverse.py:44"))
     ]
-    rows[1]["cluster"] = kernels["macow_unit_inverse"]["cluster"]   # K2's G at level 0
+    for r in rows:   # each kernel's G at level 0
+        r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,7 +1,6 @@
 // The inverse of one masked-conv flow (MCF) by a thread-block cluster: G CTAs
-// own one batch example together.  Written for kernel K2
-// (mcf_unit_inverse.cu) and usable by any MCF inverse that stages its weights
-// per MCF.
+// own one batch example together.  Shared by both MCF inverse kernels: K1
+// (mcf_inverse.cu, one MCF) and K2 (mcf_unit_inverse.cu, a whole MaCowUnit).
 //
 // An MCF inverse is a recurrence along one spatial axis (the "sequential"
 // axis: rows for orders A/B, columns for C/D); each step inverts one line of
@@ -12,21 +11,29 @@
 //   mu, logs  = act[p] @ w1^T + b1                               (2C)
 //   out[i, p] = (in[i, p] - mu) / (1 + alpha * tanh(logs / 2) + 1e-12)
 //
+// where q(r) = i - kseq + r scanning forward and i + 1 + r scanning in reverse,
+// and positions outside the latent are the zero padding of the shifted conv.
+// Every order runs in its native orientation: the axis and the direction are
+// index arithmetic, and the weights are read as stored (w_shift OIHW, with
+// (kseq, kpar) for row scans and (kpar, kseq) for column scans; w1 (2C,
+// hid + hc), the weight-normed 1x1 conv; b1 (2C)), so nothing is flipped or
+// transposed.
+//
 // Split over the cluster: rank g owns the hidden channels J_g = [g*jg, (g+1)*jg)
 // (jg = hid / G) and the h channels [g*kg, (g+1)*kg) (kg = hc / G).  Its shared
 // memory holds
-//   * both latent buffers (ping-pong), replicated in every rank, at the odd
-//     strides of mcf_scan.cuh so that the positions of a line fall in
-//     distinct banks;
+//   * both latent buffers (ping-pong), replicated in every rank, at odd
+//     strides (make_dims) so that the positions of a line fall in distinct
+//     banks;
 //   * act_fn(h) of its h channels at all H x W positions, computed once per
 //     launch (h is the same for every MCF of a unit);
 //   * the activation rows of one line: its jg hidden, then its kg h channels;
-//   * a ring of two weight slices, one MCF each: the w_shift rows J_g
-//     (tap-major), the w1 columns of J_g and of its h channels, and all of
-//     b1.  They are staged with 4-byte cp.async (any alignment, any layout),
-//     one MCF ahead, so no weight is read from global memory inside the line
-//     loop;
-//   * a double-buffered block of partial (mu, logs) pairs, P x C float2.
+//   * a double-buffered block of partial (mu, logs) pairs, P x C float2;
+//   * the weight slices, one MCF each: the w_shift rows J_g (tap-major), the
+//     w1 columns of J_g and of its h channels, and all of b1.  K1 holds one
+//     slice, K2 a ring of two (one MCF ahead).  They are staged with 4-byte
+//     cp.async (any alignment, any layout), so no weight is read from global
+//     memory inside the line loop.
 //
 // Each line, on every rank:
 //   1. ctx and act of (p, j in J_g) from the lines already inverted, and
@@ -56,7 +63,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "mcf_scan.cuh"  // Dims, make_dims, activate, allow_smem, actnorm_inverse
+#include <utility>
 
 namespace ipoke {
 
@@ -66,8 +73,59 @@ constexpr int kClusterThreads = 256;
 constexpr int kMaxCluster = 8;                // portable cluster size on sm_90
 constexpr size_t kMaxSmemBytes = 232448;      // shared memory one CTA may use
 
+// Activation codes; ops/cuda/_build.py ACT_CODES holds the same table.
+enum Act { ACT_ELU = 0, ACT_RELU = 1, ACT_LEAKY_RELU = 2 };
+
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == ACT_ELU) return x > 0.f ? x : expm1f(x);
+  if (act == ACT_RELU) return fmaxf(x, 0.f);
+  return x > 0.f ? x : 0.1f * x;
+}
+
+struct Dims {
+  int H, W, C;      // latent extent of one example
+  int hid, hc;      // shifted-conv output channels, conditioning channels
+  int kseq, kpar;   // kernel extent along the sequential / parallel axis
+  float alpha;
+  int act;
+  int ldc, ldr;     // latent strides in floats, per position and per row; odd
+};
+
+struct McfWeights {
+  const float* w_shift;
+  const float* w1;
+  const float* b1;
+};
+
+inline Dims make_dims(int H, int W, int C, int hid, int hc, int kseq, int kpar,
+                      float alpha, int act) {
+  Dims d{H, W, C, hid, hc, kseq, kpar, alpha, act, 0, 0};
+  d.ldc = C | 1;
+  d.ldr = (W * d.ldc) | 1;
+  return d;
+}
+
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// ActNorm inverse in place on a latent in shared memory; an = [log_scale (C),
+// bias (C)].
+__device__ inline void actnorm_inverse(float* x, const float* __restrict__ an,
+                                       const Dims& d) {
+  const int n = d.H * d.W * d.C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int c = e % d.C, pos = e / d.C;
+    float* v = x + (pos / d.W) * d.ldr + (pos % d.W) * d.ldc + c;
+    *v = (*v - an[d.C + c]) / (expf(an[c]) + 1e-8f);
+  }
+}
+
 struct ClusterDims {
-  Dims base;        // extents and latent strides (base.lda is not used)
+  Dims base;        // extents and latent strides
   int G, jg, kg;    // cluster size; hidden and h channels per rank
   int P;            // max(H, W): positions of the longest line
   int lda;          // activation row stride (per position: jg hidden, then kg h), odd
@@ -98,28 +156,27 @@ inline bool make_cluster_dims(int H, int W, int C, int hid, int hc, int kseq, in
 
 // Float offsets of the regions of one rank's shared memory, each start
 // rounded up to 16 bytes: two latents, act_fn(h), activations, partials
-// (2 buffers), the weight ring (2 slices).
+// (2 buffers), `slices` weight slices (K1 1, K2 2).
 struct SmemLayout {
-  int lat1, hact, act, part, ring0, ring1, end;
+  int lat1, hact, act, part, ring, end;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-__host__ __device__ inline SmemLayout smem_layout(const ClusterDims& cd) {
+__host__ __device__ inline SmemLayout smem_layout(const ClusterDims& cd, int slices) {
   const Dims& d = cd.base;
   SmemLayout l;
   l.lat1 = round4(d.H * d.ldr);
   l.hact = l.lat1 + round4(d.H * d.ldr);
   l.act = l.hact + round4(cd.kg ? d.H * cd.hrs : 0);
   l.part = l.act + round4(cd.P * cd.lda);
-  l.ring0 = l.part + round4(2 * cd.P * 2 * d.C);
-  l.ring1 = l.ring0 + round4(cd.slice);
-  l.end = l.ring1 + round4(cd.slice);
+  l.ring = l.part + round4(2 * cd.P * 2 * d.C);
+  l.end = l.ring + slices * round4(cd.slice);
   return l;
 }
 
-inline size_t cluster_smem_bytes(const ClusterDims& cd) {
-  return sizeof(float) * (size_t)smem_layout(cd).end;
+inline size_t cluster_smem_bytes(const ClusterDims& cd, int slices) {
+  return sizeof(float) * (size_t)smem_layout(cd, slices).end;
 }
 
 struct ClusterSmem {
@@ -127,13 +184,36 @@ struct ClusterSmem {
   float* hact;
   float* act;
   float* part;      // (mu, logs) of (c, p) at part[buf * 2C * P + 2 * (c * P + p)]
-  float* ring[2];
+  float* ring[2];   // ring[1] is nullptr with one slice
 };
 
-__device__ inline ClusterSmem carve(float* smem, const ClusterDims& cd) {
-  const SmemLayout l = smem_layout(cd);
+__device__ inline ClusterSmem carve(float* smem, const ClusterDims& cd, int slices) {
+  const SmemLayout l = smem_layout(cd, slices);
+  float* ring = smem + l.ring;
   return ClusterSmem{{smem, smem + l.lat1}, smem + l.hact, smem + l.act, smem + l.part,
-                     {smem + l.ring0, smem + l.ring1}};
+                     {ring, slices > 1 ? ring + round4(cd.slice) : nullptr}};
+}
+
+// Launch `kernel` on B clusters of G CTAs of kClusterThreads each, with
+// `bytes` of dynamic shared memory per CTA.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int G, int B, size_t bytes,
+                                   cudaStream_t stream, Args&&... args) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * G);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -171,22 +251,28 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Start (not wait for) the cp.async copies of rank's slice of one MCF:
-//   [0, jg*wsj)            w_shift rows J_g, each C*kseq*kpar floats, tap-major
-//                          ([tap][c], tap = kh * KW + kw of OIHW)
-//   [.., + 2C*k2p)         w1 rows o: columns J_g, then the rank's h columns
-//   [.., + 2C)             b1
-__device__ __forceinline__ void stage_slice(float* buf, McfWeights wt, const ClusterDims& cd,
+// Start (not wait for) the cp.async copies of rank's slice of one MCF, in two
+// halves that a kernel may commit as separate groups:
+//   stage_shift    [0, jg*wsj)       w_shift rows J_g, each C*kseq*kpar floats,
+//                                    tap-major ([tap][c], tap = kh * KW + kw of OIHW)
+//   stage_conv1x1  [.., + 2C*k2p)    w1 rows o: columns J_g, then the rank's h columns
+//                  [.., + 2C)        b1
+__device__ __forceinline__ void stage_shift(float* buf, McfWeights wt, const ClusterDims& cd,
                                             int rank) {
-  const int C = cd.base.C, jg = cd.jg, k2 = cd.jg + cd.kg, k2p = cd.k2p, wsj = cd.wsj;
-  const int row = C * cd.base.kseq * cd.base.kpar, K = cd.base.hid + cd.base.hc;
+  const int C = cd.base.C, jg = cd.jg, wsj = cd.wsj;
+  const int ksz = cd.base.kseq * cd.base.kpar, row = C * ksz;
   const float* __restrict__ ws = wt.w_shift + (size_t)rank * jg * row;
-  const int ksz = cd.base.kseq * cd.base.kpar;
   for (int e = threadIdx.x; e < jg * row; e += blockDim.x) {
     const int j = e / row, ct = e % row;   // OIHW: ct = c * ksz + tap
     cp_async4(buf + j * wsj + (ct % ksz) * C + ct / ksz, ws + e);
   }
-  float* w1s = buf + jg * wsj;
+}
+
+__device__ __forceinline__ void stage_conv1x1(float* buf, McfWeights wt, const ClusterDims& cd,
+                                              int rank) {
+  const int C = cd.base.C, jg = cd.jg, k2 = cd.jg + cd.kg, k2p = cd.k2p;
+  const int K = cd.base.hid + cd.base.hc;
+  float* w1s = buf + jg * cd.wsj;
   const int j0 = rank * jg, h0 = cd.base.hid + rank * cd.kg - jg;
   for (int e = threadIdx.x; e < 2 * C * k2; e += blockDim.x) {
     const int o = e / k2, k = e % k2;
@@ -194,6 +280,12 @@ __device__ __forceinline__ void stage_slice(float* buf, McfWeights wt, const Clu
   }
   float* b1s = w1s + 2 * C * k2p;
   for (int e = threadIdx.x; e < 2 * C; e += blockDim.x) cp_async4(b1s + e, wt.b1 + e);
+}
+
+__device__ __forceinline__ void stage_slice(float* buf, McfWeights wt, const ClusterDims& cd,
+                                            int rank) {
+  stage_shift(buf, wt, cd, rank);
+  stage_conv1x1(buf, wt, cd, rank);
 }
 
 // Start the cp.async copies of one example's inputs: y_b (NHWC) into the
@@ -269,8 +361,12 @@ __device__ __forceinline__ StepMap step_map(int P, int cols) {
 // over the launch and picks the partial buffer.  KSEQ x KPAR is the kernel
 // extent (sequential x parallel) when known at compile time, 0 x 0 to read it
 // from cd.  Every index that does not depend on the line is computed once,
-// before the line loop.  Ends synchronised within the CTA.
-template <int G, int KSEQ, int KPAR>
+// before the line loop.  With AWAIT_CONV1X1 the 1x1-conv half of the slice
+// (stage_conv1x1) is this thread's last cp.async group still in flight: the
+// first line waits for it after step 1, so that step overlaps the copy (K1,
+// which has no earlier MCF to hide its staging behind).  Ends synchronised
+// within the CTA.
+template <int G, int KSEQ, int KPAR, bool AWAIT_CONV1X1 = false>
 __device__ __forceinline__ void cluster_scan(const float* in_s, float* out_s,
                                              const ClusterSmem& sm, const float* wbuf,
                                              const unsigned* rparts, const ClusterDims& cd,
@@ -367,6 +463,7 @@ __device__ __forceinline__ void cluster_scan(const float* in_s, float* out_s,
       const int p = e / kg, k = e % kg;
       act_s[p * lda + jg + k] = hline[p * hpar + k];
     }
+    if (AWAIT_CONV1X1 && t == 0) cp_async_wait<0>();
     __syncthreads();
     // 2. this rank's partial (mu, logs) over its hidden and h channels
     float* part = part_s + buf;

@@ -25,6 +25,8 @@
 
 namespace ipoke {
 
+constexpr int kUnitSlices = 2;   // the ring: the MCF that scans and the next one
+
 template <int G, int KSEQ, int KPAR>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 macow_unit_inverse_kernel(const float* __restrict__ y, const float* __restrict__ h,
@@ -36,7 +38,7 @@ macow_unit_inverse_kernel(const float* __restrict__ y, const float* __restrict__
   const int rank = (int)cg::this_cluster().block_rank();
   const int b = blockIdx.x / G;
   const Dims& d = cd.base;
-  const ClusterSmem sm = carve(smem, cd);
+  const ClusterSmem sm = carve(smem, cd, kUnitSlices);
   unsigned rparts[G];   // every rank's partial block, as seen from this CTA
 #pragma unroll
   for (int r = 0; r < G; ++r) rparts[r] = cluster_addr(sm.part, r);
@@ -89,22 +91,7 @@ cudaError_t launch_cluster(const ClusterDims& cd, size_t bytes, int B, cudaStrea
                            float* out) {
   const bool k23 = cd.base.kseq == 2 && cd.base.kpar == 3;
   const auto kernel = k23 ? macow_unit_inverse_kernel<G, 2, 3> : macow_unit_inverse_kernel<G, 0, 0>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * G);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, y, h, wA, wB, wC, wD, an1, an2,
-                            out, cd);
+  return launch_clusters(kernel, G, B, bytes, stream, y, h, wA, wB, wC, wD, an1, an2, out, cd);
 }
 
 }  // namespace ipoke
@@ -124,7 +111,7 @@ extern "C" int macow_unit_inverse_launch(
   ClusterDims cd;
   if (!make_cluster_dims(H, W, C, hid, hc, kseq, kpar, alpha, act, cluster, &cd))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = cluster_smem_bytes(cd);
+  const size_t bytes = cluster_smem_bytes(cd, kUnitSlices);
   if (bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   const McfWeights wA_{wA, w1A, bA}, wB_{wB, w1B, bB}, wC_{wC, w1C, bC}, wD_{wD, w1D, bD};
   const cudaStream_t st = (cudaStream_t)stream;

@@ -1,12 +1,15 @@
 """Masked Convolutional Flow (counterpart of ``ipoke_tpu/flows/mcf.py``).
 
 The forward (density) direction is one shifted-conv pass.  The inverse is a
-recurrence along one spatial axis; all four orders reduce to the canonical
-row scan of order A by flips and transposes (``_canonicalize``).  Backends:
+recurrence along one spatial axis (rows for orders A/B, columns for C/D).
+Backends:
 
   'scan'  the plain PyTorch row loop (``ops/cuda/mcf_inverse.mcf_inverse_plain``),
-          the counterpart of the JAX ``_row_scan_inverse``;
-  'cuda'  kernel K1 for each MCF (the counterpart of JAX ``'pallas'``).
+          the counterpart of the JAX ``_row_scan_inverse``; orders B/C/D map
+          onto order A by flips and transposes inside it;
+  'cuda'  kernel K1 for each MCF (the counterpart of JAX ``'pallas'``), which
+          runs every order in its native orientation on z, h and the weights
+          as stored: nothing is flipped, transposed or copied on the way.
 
 The JAX scan hoists the conditioning half of the 1x1 conv out of the loop;
 the port's loop keeps the concatenated form of the kernel.  Both are the same
@@ -17,7 +20,7 @@ from __future__ import annotations
 from ipoke_tpu_torch.flows import convnets
 from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.nn.core import weight_norm_materialize
-from ipoke_tpu_torch.ops.cuda.mcf_inverse import canonical, mcf_inverse, mcf_inverse_plain
+from ipoke_tpu_torch.ops.cuda.mcf_inverse import mcf_inverse, mcf_inverse_plain
 
 
 def default_hidden(in_channels):
@@ -32,23 +35,15 @@ def forward(p, x, h=None, order="A", transform="affine", alpha=1.0, act="elu"):
     return T.fwd(x, T.calc_params(raw, alpha))
 
 
-def _canonicalize(p, z, h, order):
-    """(w, z, h, undo) with the problem mapped to canonical order A."""
-    return canonical(p["net"]["shift_conv"]["w"], z, h, order)
-
-
 def inverse(p, z, h=None, order="A", transform="affine", alpha=1.0, act="elu",
             backend="scan"):
     get_transform(transform)
-    w_c, z_c, h_c, undo = _canonicalize(p, z, h, order)
     conv1x1 = p["net"]["conv1x1"]
     w1 = weight_norm_materialize(conv1x1["v"], conv1x1["g"])
     w1 = w1.reshape(w1.shape[0], -1)
+    args = (z, h, p["net"]["shift_conv"]["w"], w1, conv1x1["b"], order, alpha, act)
     if backend == "scan":
-        out = mcf_inverse_plain(z_c, h_c, w_c, w1, conv1x1["b"], alpha, act)
-    elif backend == "cuda":
-        out = mcf_inverse(z_c.contiguous(), None if h_c is None else h_c.contiguous(),
-                          w_c.contiguous(), w1, conv1x1["b"], alpha, act)
-    else:
-        raise ValueError(f"mcf backend {backend!r} is not 'scan' or 'cuda'")
-    return undo(out)
+        return mcf_inverse_plain(*args)
+    if backend == "cuda":
+        return mcf_inverse(*args)
+    raise ValueError(f"mcf backend {backend!r} is not 'scan' or 'cuda'")

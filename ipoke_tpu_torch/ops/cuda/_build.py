@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# activation name -> code of csrc/mcf_scan.cuh (enum Act)
+# activation name -> code of csrc/mcf_cluster_scan.cuh (enum Act)
 ACT_CODES = {"elu": 0, "relu": 1, "leaky_relu": 2}
 
 _P = ctypes.c_void_p
@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of each library's launch function
 SIGNATURES = {
-    "mcf_inverse": ("mcf_inverse_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "mcf_inverse": ("mcf_inverse_launch", [_P] * 6 + [_I] * 8 + [_F, _I, _I, _I, _I, _P]),
     "mcf_unit_inverse": ("macow_unit_inverse_launch", [_P] * 17 + [_I] * 8 + [_F, _I, _I, _P]),
 }
 

@@ -30,44 +30,21 @@ import torch
 
 from ipoke_tpu_torch.nn.core import weight_norm_materialize
 from ipoke_tpu_torch.ops.cuda import _build
-from ipoke_tpu_torch.ops.cuda.mcf_inverse import canonical, mcf_inverse_plain
+from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
+from ipoke_tpu_torch.ops.cuda.mcf_inverse import ORDERS, mcf_inverse_plain
 
-ORDERS = ("A", "B", "C", "D")   # conv1..conv4 of a MaCowUnit
-CLUSTER_SIZES = (1, 2, 4, 8)    # portable thread-block cluster sizes on sm_90
-MAX_SMEM_BYTES = 232_448        # shared memory one CTA may use on the H100
-
-
-def rank_channels(g, hid, hc):
-    """Per rank of a cluster of ``g``: (its hidden channels, its h channels),
-    as ``range`` objects, the split of ``csrc/mcf_cluster_scan.cuh``."""
-    jg, kg = hid // g, hc // g
-    return [(range(r * jg, (r + 1) * jg), range(r * kg, (r + 1) * kg)) for r in range(g)]
+SLICES = 2   # the ring of weight slices: the MCF that scans and the one staged behind it
 
 
 def cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width):
-    """Shared memory of one CTA of K2 at cluster size ``g``: the same count as
-    ``cluster_smem_bytes`` in ``csrc/mcf_cluster_scan.cuh``.  Raises
-    ``ValueError`` for a ``g`` that is not a cluster size or does not divide
-    ``hid`` and ``hc``."""
-    if g not in CLUSTER_SIZES or hid % g or hc % g:
-        raise ValueError(f"cluster size {g} is not in {CLUSTER_SIZES} or does not divide "
-                         f"hid {hid} and hc {hc}")
-    jg, kg = hid // g, hc // g
-    ldc = c | 1
-    ldr = (width * ldc) | 1
-    hrs = (width * (kg | 1)) | 1
-    p = max(height, width)
-    slice_ = jg * ((c * kseq * kpar) | 1) + 2 * c * ((jg + kg) | 1) + 2 * c
-    r4 = lambda n: (n + 3) // 4 * 4   # noqa: E731  every region starts on 16 bytes
-    return 4 * (2 * r4(height * ldr) + r4(height * hrs if kg else 0) + r4(p * ((jg + kg) | 1))
-                + r4(2 * p * 2 * c) + 2 * r4(slice_))
+    """Shared memory of one CTA of K2 at cluster size ``g``
+    (``mcf_inverse.cluster_smem_bytes`` with K2's two slices)."""
+    return k1.cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width, SLICES)
 
 
 def allowed_clusters(c, hid, hc, kseq, kpar, height, width):
-    """The cluster sizes K2 takes at these shapes: those of ``CLUSTER_SIZES``
-    that divide ``hid`` and ``hc`` and whose shared memory fits one CTA."""
-    return [g for g in CLUSTER_SIZES if hid % g == 0 and hc % g == 0
-            and cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width) <= MAX_SMEM_BYTES]
+    """The cluster sizes K2 takes at these shapes."""
+    return k1.allowed_clusters(c, hid, hc, kseq, kpar, height, width, SLICES)
 
 
 def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None):
@@ -88,16 +65,7 @@ def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None):
     explicit ``cluster`` is checked instead.  ``ValueError`` for a G that does not divide or does
     not fit, and when no G fits.
     """
-    if cluster is None:
-        allowed = allowed_clusters(c, hid, hc, kseq, kpar, height, width)
-        if not allowed:
-            raise ValueError(f"no cluster size in {CLUSTER_SIZES} fits C={c}, hid={hid}, hc={hc}")
-        cluster = allowed[-1]
-    nbytes = cluster_smem_bytes(cluster, c, hid, hc, kseq, kpar, height, width)
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"cluster size {cluster}: {nbytes} bytes of shared memory per CTA "
-                         f"exceed {MAX_SMEM_BYTES} (C={c}, hid={hid}, hc={hc})")
-    return cluster, nbytes
+    return k1.cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster, SLICES)
 
 
 def _actnorm_inv(x, an):
@@ -112,8 +80,7 @@ def macow_unit_inverse_plain(y, h, weights, an1, an2, alpha=1.0, act="elu"):
     """
     def mcf(x, order):
         w, w1, b1 = weights[ORDERS.index(order)]
-        w_c, x_c, h_c, undo = canonical(w, x, h, order)
-        return undo(mcf_inverse_plain(x_c, h_c, w_c, w1, b1, alpha, act))
+        return mcf_inverse_plain(x, h, w, w1, b1, order, alpha, act)
 
     out = _actnorm_inv(y, an2)
     out = mcf(out, "D")

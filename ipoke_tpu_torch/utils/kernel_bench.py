@@ -1,15 +1,16 @@
-"""Inputs and timers for the port's kernels on the CUDA card, and K2's sweep
-over its cluster size G.
+"""Inputs and timers for the port's kernels on the CUDA card, and the sweeps
+of K1 and K2 over their cluster size G.
 
     python -m ipoke_tpu_torch.utils.kernel_bench
 
-The sweep runs K2 (``ops/cuda/mcf_unit_inverse``) at B=8, hc=128 on the 8x8
-latent, for C in 32, 16, 4 and 64 and every G the kernel takes at that C,
-and prints per launch: the kernel's own device time (``torch.profiler``),
-the time per launch of a loop of launches by CUDA events (the wrapper's host
-cost shows there when it exceeds the kernel's), and the bound; one JSON line
-at the end.  ``chip_smoke.py`` runs the same sweep.  Every number is the
-card's own, printed beside the card's name and power limit.
+The sweeps run K1 (``ops/cuda/mcf_inverse``, order A) and K2
+(``ops/cuda/mcf_unit_inverse``) at B=8, hc=128 on the 8x8 latent, for C in
+32, 16, 4 and 64 and every G the kernel takes at that C, and print per
+launch: the kernel's own device time (``torch.profiler``), the time per
+launch of a loop of launches by CUDA events (the wrapper's host cost shows
+there when it exceeds the kernel's), and the bound; one JSON line at the
+end.  ``chip_smoke.py`` runs the same sweeps.  Every number is the card's
+own, printed beside the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ipoke_tpu_torch.flows import mcf
+from ipoke_tpu_torch.nn.core import weight_norm_materialize
+from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
 from ipoke_tpu_torch.utils.profile_sample import _device_us
 
@@ -28,6 +31,7 @@ from ipoke_tpu_torch.utils.profile_sample import _device_us
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SWEEP_LEVELS = (32, 16, 4, 64)
+K1_KERNEL = "mcf_inverse_kernel"
 K2_KERNEL = "macow_unit_inverse_kernel"
 
 
@@ -89,6 +93,14 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k1_work(b, s, c, hc):
+    """(flops, bytes) of one K1 launch: z read, h read, out written, one MCF's
+    weights read once."""
+    hid = mcf.default_hidden(c)
+    nbytes = 4 * (2 * b * s * s * c + b * s * s * hc + mcf_weight_floats(c, hid, hc))
+    return mcf_flops(b, s, s, c, hid, hc), nbytes
+
+
 def k2_work(b, s, c, hc):
     """(flops, bytes) of one K2 launch: y read, h read, out written, four
     MCFs' weights and two actnorms read once."""
@@ -110,6 +122,17 @@ def mcf_params(gen, c, hc, kernel, device, gain=0.2):
                                 "g": torch.full((2 * c,), gain, device=device), "b": n(2 * c)}}}
 
 
+def mcf_inputs(gen, c, hc, b, s, order, device):
+    """K1's arguments for one MCF of ``order``, weights as stored:
+    (z, h, w_shift, w1, b1)."""
+    net = mcf_params(gen, c, hc, (2, 3) if order in "AB" else (3, 2), device)["net"]
+    w1 = weight_norm_materialize(net["conv1x1"]["v"], net["conv1x1"]["g"])
+    w, w1, b1 = net["shift_conv"]["w"], w1.reshape(2 * c, -1), net["conv1x1"]["b"]
+    z = torch.randn(b, s, s, c, generator=gen).to(device)
+    h = torch.randn(b, s, s, hc, generator=gen).to(device) if hc else None
+    return z, h, w, w1, b1
+
+
 def unit_params(gen, c, hc, device):
     kernels = ((2, 3), (2, 3), (3, 2), (3, 2))
     p = {f"conv{i + 1}": mcf_params(gen, c, hc, k, device) for i, k in enumerate(kernels)}
@@ -127,12 +150,41 @@ def unit_inputs(gen, c, hc, b, s, device):
     return k2.unit_weights(up), an, y, h
 
 
+def k1_clusters(c, hc, s):
+    return k1.allowed_clusters(c, mcf.default_hidden(c), hc, 2, 3, s, s)
+
+
+def k1_plan(c, hc, s):
+    return k1.cluster_plan(c, mcf.default_hidden(c), hc, 2, 3, s, s)[0]
+
+
 def k2_clusters(c, hc, s):
     return k2.allowed_clusters(c, mcf.default_hidden(c), hc, 2, 3, s, s)
 
 
 def k2_plan(c, hc, s):
     return k2.cluster_plan(c, mcf.default_hidden(c), hc, 2, 3, s, s)[0]
+
+
+def sweep_k1(device, log, card, levels=SWEEP_LEVELS, b=8, s=8, hc=128, iters=100, seed=0):
+    """K1 (order A) at every G it takes, for each C of ``levels``; rows as
+    ``sweep_k2``'s."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for c in levels:
+        z, h, w, w1, b1 = mcf_inputs(gen, c, hc, b, s, "A", device)
+        bms, by = bound(*k1_work(b, s, c, hc))
+        plan = k1_plan(c, hc, s)
+        for g in k1_clusters(c, hc, s):
+            def run(g=g):
+                return k1.mcf_inverse(z, h, w, w1, b1, cluster=g)
+            dev_ms, ev_ms = device_ms(run, iters, K1_KERNEL), time_ms(run, iters)
+            rows.append(dict(c=c, hc=hc, b=b, g=g, plan=g == plan, device_ms=dev_ms,
+                             event_ms=ev_ms, bound_ms=bms, bound_by=by))
+            log(f"sweep [{card}]: K1 B={b} C={c} hc={hc} G={g}{' (plan)' if g == plan else ''}: "
+                f"{dev_ms:.4f} ms/launch on the device, {ev_ms:.4f} ms/launch by events "
+                f"in a loop; bound {bms:.5f} ms ({by})")
+    return rows
 
 
 def sweep_k2(device, log, card, levels=SWEEP_LEVELS, b=8, s=8, hc=128, iters=100, seed=0):
@@ -161,9 +213,10 @@ def sweep_k2(device, log, card, levels=SWEEP_LEVELS, b=8, s=8, hc=128, iters=100
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
-    card = card_line()
-    rows = sweep_k2(torch.device("cuda", 0), lambda m: print(m, flush=True), card)
-    print(json.dumps({"card": card, "k2_sweep": rows}))
+    card, dev = card_line(), torch.device("cuda", 0)
+    log =lambda m: print(m, flush=True)  # noqa: E731
+    rows = {"k1_sweep": sweep_k1(dev, log, card), "k2_sweep": sweep_k2(dev, log, card)}
+    print(json.dumps({"card": card, **rows}))
 
 
 if __name__ == "__main__":

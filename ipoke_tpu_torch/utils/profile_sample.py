@@ -1,21 +1,27 @@
 """Where the time of one ``forward_sample`` call goes, on the CUDA card.
 
-    python -m ipoke_tpu_torch.utils.profile_sample
+    python -m ipoke_tpu_torch.utils.profile_sample [--mcf-backend cuda_unit|cuda|scan]
 
 Synthesises the flagship's (iper_128) params on the card (zeroed flow output
 gains, bf16 decode, as the JAX server's synthetic model), warms up, then
-prints:
+prints, for the MCF backend chosen (default ``'cuda_unit'``, kernel K2;
+``'cuda'`` runs kernel K1 for each MCF):
   * per-stage latency (host clock around ``torch.cuda.synchronize()``):
     ``embed_cond``, ``transformer.reverse``, ``first_stage.decode``;
   * a ``torch.profiler`` window of one call: device time by kernel name,
-    the device's busy share of the window, and the count of launches;
+    the device's busy share of the window, the count of launches, the
+    device time and launches of K1 and K2, and those of device copies
+    (kernels whose name holds memcpy, copy or flip, the concatenations'
+    ``CatArrayBatchedCopy`` among them);
   * one JSON line with these numbers.
 Every number is the card's own; the card's name and power limit are printed
 beside them.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import subprocess
 import time
 from dataclasses import replace
@@ -29,6 +35,8 @@ from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.utils import synth
 
 MODEL, BATCH, TOP = registry.FLAGSHIP, 8, 15
+KERNELS = {"mcf_inverse": "mcf_inverse_kernel", "macow_unit_inverse": "macow_unit_inverse_kernel"}
+COPY = re.compile(r"memcpy|copy|flip", re.IGNORECASE)   # device copies, by kernel name
 
 
 def _card():
@@ -56,6 +64,10 @@ def _on_device(evt):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mcf-backend", choices=("cuda_unit", "cuda", "scan"), default="cuda_unit",
+                    help="MCF inverse backend of the flow (default: %(default)s)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sample: needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -63,7 +75,7 @@ def main():
     dev = torch.device("cuda", 0)
     card = _card()
 
-    spec = registry.build_specs(registry.MODELS[MODEL])
+    spec = registry.build_specs(registry.MODELS[MODEL], mcf_backend=args.mcf_backend)
     spec = replace(spec, first_stage=replace(spec.first_stage, decode_dtype="bf16"))
     params = synth.synth_params(spec, seed=0, device=dev)
     params = dict(params, flow=synth.zero_flow_output_convs(params["flow"]))
@@ -88,7 +100,7 @@ def main():
         _, t_dec = _timed(lambda: second_stage.decode_first_stage(params, spec, motion, x0, length))
     _, t_call = _timed(call)
     stages = {"embed_cond_ms": t_cond, "reverse_ms": t_rev, "decode_ms": t_dec, "call_ms": t_call}
-    print(f"[{card}] {MODEL} B={b}: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    print(f"[{card}] {MODEL} B={b} mcf_backend={args.mcf_backend}: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -104,8 +116,18 @@ def main():
           f"({100 * busy_ms / window_ms:.1f}%), {launches} device kernels/copies")
     for name, ms, n in rows[:TOP]:
         print(f"  {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  x{n:<6d} {name[:100]}")
-    result = {"card": card, "model": MODEL, "batch": b, **stages,
+
+    def total(match):
+        picked = [(ms, n) for name, ms, n in rows if match(name)]
+        return {"ms": sum(ms for ms, _ in picked), "count": sum(n for _, n in picked)}
+
+    kernels = {k: total(lambda name, sub=sub: sub in name) for k, sub in KERNELS.items()}
+    copies = total(lambda name: COPY.search(name) is not None)
+    for k, v in dict(kernels, copies=copies).items():
+        print(f"[{card}] profiled call: {k} {v['ms']:.3f} ms of device time in {v['count']} launches")
+    result = {"card": card, "model": MODEL, "batch": b, "mcf_backend": args.mcf_backend, **stages,
               "window_ms": window_ms, "device_busy_ms": busy_ms, "device_launches": launches,
+              "kernels": kernels, "copies": copies,
               "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:TOP]]}
     print(json.dumps(result))
 

@@ -59,6 +59,35 @@ def test_mcf_inverse_module(order, cond):
     assert k1.mcf_inverse.launches == 0   # CPU tensors never launch
 
 
+@pytest.mark.parametrize("order", ["A", "B", "C", "D"])
+def test_mcf_inverse_cuda_takes_inputs_as_stored(order, monkeypatch):
+    """Backend 'cuda' hands z, h and w_shift to K1 as they are: no flip,
+    transpose or copy on the way to the kernel."""
+    seen = {}
+
+    def kernel(*args):
+        seen["args"] = args
+        return args[0]
+
+    monkeypatch.setattr(mcf, "mcf_inverse", kernel)
+    rng = np.random.default_rng(3)
+    n = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    w = n(4 * C, C, *((2, 3) if order in "AB" else (3, 2)))
+    p = {"net": {"shift_conv": {"w": w},
+                 "conv1x1": {"v": n(2 * C, 4 * C + HC, 1, 1), "g": n(2 * C), "b": n(2 * C)}}}
+    z, h = n(B, S, S, C), n(B, S, S, HC)
+    assert mcf.inverse(p, z, h, order=order, alpha=0.5, backend="cuda") is z
+    args = seen["args"]
+    assert args[0] is z and args[1] is h and args[2] is w and args[5:] == (order, 0.5, "elu")
+    assert tuple(args[3].shape) == (2 * C, 4 * C + HC)
+
+
+def test_mcf_inverse_rejects_an_unknown_order():
+    z, w, w1, b1 = (t(np.zeros(s, np.float32)) for s in ((1, 4, 4, 2), (8, 2, 2, 3), (4, 8), (4,)))
+    with pytest.raises(ValueError, match="order"):
+        k1.mcf_inverse(z, None, w, w1, b1, "E")
+
+
 @pytest.mark.parametrize("cond", [True, False])
 def test_macow_unit_inverse_module(cond):
     hc = 12 if cond else 0
