@@ -22,18 +22,31 @@ Phases, each fatal on failure:
              one on the option 'cuda' (K1, 800 launches), launch counts read
              around them; then one batch through 'cuda_unit', 'cuda' and
              'scan' (plain) with non-zero flow output gains, compared.
-  5. report  a JSON line of kernels, the card's line, and last
+  5. serve   the serving path on the same params: the port's HTTP server
+             (127.0.0.1, a free port) over a SampleBatcher (max_batch 8,
+             30 ms window), every bucket warmed, then the port's load test
+             (2 spawned processes x 8 connections, 48 requests, npy_u8);
+             launch counts read around it (K2 200 per batch run).  Then, on
+             a batcher with flow output gains CROSS_GAIN and f32 decode, one
+             served npy video against forward_sample on the z that
+             utils/prng draws from its seed, and three requests alone
+             against the same three in one batch.
+  6. report  a JSON line of kernels, the card's line, and last
              {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
 from __future__ import annotations
 
+import http.client
+import io
 import json
 import re
 import sys
+import threading
 import time
 from dataclasses import replace
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,14 +54,19 @@ if not (ROOT / "ipoke_tpu_torch" / "__init__.py").is_file():
     sys.exit("chip_smoke: ipoke_tpu_torch/ not found beside this script; run it from a checkout")
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from ipoke_tpu_torch import registry  # noqa: E402
+from ipoke_tpu_torch.flows import transformer  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
-from ipoke_tpu_torch.utils import synth  # noqa: E402
+from ipoke_tpu_torch.serve import loadtest  # noqa: E402
+from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
+from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
+from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
     k2_clusters, k2_plan, k2_work, mcf_inputs, sweep_k1, sweep_k2, time_ms, unit_inputs)
@@ -62,6 +80,7 @@ CROSS_GAIN = 0.02
 # The cross-check decodes in f32: kernel and plain sums differ by ~1 ulp per
 # MCF, 800 MCFs deep, and the decoder adds its own cuDNN f32 sums.
 CROSS_TOL = 2e-3
+SERVE_REQUESTS, SERVE_PROCS, SERVE_CONNS = 48, 2, 8
 
 
 def log(msg):
@@ -226,6 +245,128 @@ def phase_cross_check(device, spec, params, b=BATCH):
             raise SystemExit(f"cross-check: {backend} disagrees with scan: {err}")
 
 
+def _start_server(batcher):
+    """The port's HTTP server over ``batcher`` on 127.0.0.1, a free port."""
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, thread
+
+
+def _stop_server(httpd, thread, batcher):
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=10)
+    batcher.close()
+
+
+def _http(port, method, path, body=None, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise SystemExit(f"serve: {method} {path} answered {resp.status}: {data[:200]!r}")
+        return data
+    finally:
+        conn.close()
+
+
+def phase_serve(card, spec, params, direct_s, b=BATCH, n_requests=SERVE_REQUESTS,
+                procs=SERVE_PROCS, conns=SERVE_CONNS):
+    """The serving path, the second path of this run: the port's HTTP server
+    over a SampleBatcher (max_batch ``b``, 30 ms window) on the slice's
+    params, every bucket warmed, then the port's load test (``procs``
+    processes x ``conns`` connections, ``n_requests`` requests, npy_u8).
+    Both launch counters are zeroed just before the warm-up and read just
+    after the load test; K2 must have launched 200 times per batch run.
+    ``direct_s`` are the slice phase's B=``b`` latencies, printed beside."""
+    batcher = SampleBatcher(params, spec, BatcherConfig(max_batch=b, max_delay_ms=30.0))
+    httpd, thread = _start_server(batcher)
+    port = httpd.server_address[1]
+    units = sum(spec.flow.num_steps) * 4
+    try:
+        k1.mcf_inverse.launches = 0
+        k2.macow_unit_inverse.launches = 0
+        t0 = time.perf_counter()
+        batcher.warmup()
+        warm_s = time.perf_counter() - t0
+        res = loadtest.run(port, requests=n_requests, procs=procs, conns=conns,
+                           size=spec.first_stage.spatial_size, fmt="npy_u8", timeout=600)
+        stats = json.loads(_http(port, "GET", "/stats"))
+        n = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+    finally:
+        _stop_server(httpd, thread, batcher)
+    n_warm = len(batcher.buckets)
+    want = (0, units * (stats["batches"] + n_warm))
+    direct_mean = sum(direct_s) / len(direct_s)
+    log(f"serve [{card}]: {res['requests_ok']}/{n_requests} requests ok, {res['errors']} errors "
+        f"({procs} processes x {conns} connections, npy_u8); {res['videos_per_s_served']:.3f} "
+        f"videos/s served over {res['wall_s']:.3f} s; p50 {res['p50_s'] * 1e3:.1f} ms, "
+        f"p95 {res['p95_s'] * 1e3:.1f} ms; batch sizes {stats['batch_size_histogram']}, "
+        f"mean batch exec {stats['mean_batch_exec_ms']:.1f} ms, mean wait "
+        f"{stats['mean_wait_ms']:.1f} ms; warm-up of buckets {batcher.buckets} {warm_s:.2f} s; "
+        f"K1/K2 launches {n[0]}/{n[1]} (want {want[0]}/{want[1]} = {units} x ({stats['batches']} "
+        f"batches + {n_warm} warm-up calls)); direct forward_sample B={b}: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in direct_s)} ms, {b / direct_mean:.3f} videos/s")
+    if (res["requests_ok"] != n_requests or res["errors"] or stats["requests"] != n_requests
+            or n != want):
+        raise SystemExit(f"serve: failed ({res}, stats {stats}, K1/K2 launches {n} want {want})")
+    return {"launches": {"mcf_inverse": n[0], "macow_unit_inverse": n[1]}}
+
+
+def phase_serve_check(device, spec, params, seeds=(11, 2**32 - 1, 2**40 + 3)):
+    """What the server answers, on a batcher whose flow output gains are
+    CROSS_GAIN, f32 decode: one request's npy video over HTTP against
+    forward_sample on the z that utils/prng draws from its seed (CROSS_TOL),
+    and the same requests alone and in one shared batch (CUDA_BATCH_TOL)."""
+    spec = replace(spec, first_stage=replace(spec.first_stage, decode_dtype="f32"))
+    params = dict(params, flow=synth.set_flow_output_gains(params["flow"], CROSS_GAIN))
+    fs = spec.first_stage
+    rng = np.random.default_rng(3000)
+    reqs = [(rng.uniform(-1, 1, (fs.spatial_size, fs.spatial_size, 3)).astype(np.float32),
+             rng.standard_normal((fs.spatial_size, fs.spatial_size, 2)).astype(np.float32), s)
+            for s in seeds]
+    batcher = SampleBatcher(params, spec, BatcherConfig(max_batch=4, max_delay_ms=200.0))
+    httpd, thread = _start_server(batcher)
+    try:
+        x0, poke, seed = reqs[0]
+        buf = io.BytesIO()
+        np.savez(buf, x0=x0, poke=poke, seed=np.int64(seed), format=np.str_("npy"))
+        served = np.load(io.BytesIO(_http(httpd.server_address[1], "POST", "/sample", buf.getvalue(),
+                                          {"Content-Type": "application/octet-stream"})))
+        z_shape = transformer.reverse_input_shape(spec.flow, 1, spec.latent_size,
+                                                  spec.flow_in_channels)[1:]
+        z = prng.normal_for_seeds([seed & prng.MASK], z_shape, device)
+        batch = {"images": torch.from_numpy(x0).to(device)[None, None],
+                 "poke": torch.from_numpy(poke).to(device)[None]}
+        direct = second_stage.forward_sample(params, spec, batch, length=fs.max_frames - 1,
+                                             add_first_frame=True, z=z)[0, 0].cpu().numpy()
+        err = float(np.abs(served - direct).max())
+        log(f"serve check (flow output gain {CROSS_GAIN}, f32 decode): max |served npy - "
+            f"forward_sample on prng z| {err:.3g} (tolerance {CROSS_TOL}); shape {served.shape}, "
+            f"video range [{direct.min():.3f}, {direct.max():.3f}]")
+        if not (np.isfinite(served).all() and err <= CROSS_TOL):
+            raise SystemExit(f"serve check: the served video disagrees with forward_sample: {err}")
+        solo = [batcher.submit(x0, poke, seed, timeout=300) for x0, poke, seed in reqs]
+        before = dict(batcher.stats.batch_hist)
+        handles = [batcher.submit_async(x0, poke, seed) for x0, poke, seed in reqs]
+        for h in handles:
+            if not h.event.wait(300) or h.error is not None:
+                raise SystemExit(f"serve check: a batched request failed: {h.error}")
+        grew = {k: v - before.get(k, 0) for k, v in batcher.stats.batch_hist.items()
+                if v != before.get(k, 0)}
+        gap = max(float(np.abs(a - h.result).max()) for a, h in zip(solo, handles))
+        log(f"serve check: {len(reqs)} requests alone (bucket 1) and together (batches {grew}): "
+            f"max |alone - batched| {gap:.3g} (tolerance {CUDA_BATCH_TOL})")
+        if grew != {4: 1} or not gap <= CUDA_BATCH_TOL:
+            raise SystemExit(f"serve check: alone and batched disagree ({gap}) or did not share "
+                             f"a batch ({grew})")
+    finally:
+        _stop_server(httpd, thread, batcher)
+
+
 def ptxas_report(log_text):
     """registers / shared memory / spills lines of nvcc -Xptxas -v."""
     keep = [ln.strip() for ln in log_text.splitlines()
@@ -276,11 +417,13 @@ def main():
         f"{res['latency_s'][0] * 1e3:.1f} ms, then {', '.join(f'{x * 1e3:.1f}' for x in steady)} ms; "
         f"{BATCH / mean_s:.2f} videos/s; peak memory {peak / 2**30:.2f} GiB")
     phase_cross_check(device, spec, params)
+    serve = phase_serve(card, spec, params, steady)
+    phase_serve_check(device, spec, params)
 
     src = "ipoke_tpu_torch/csrc/{}.cu"
     rows = [
         dict(name=name, route="cuda", source=src.format(source), replaces=replaces,
-             launches=res["launches"][name],
+             launches=res["launches"][name], serve_launches=serve["launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)

@@ -178,3 +178,54 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
         k1.mcf_inverse(z, None, w, w1, b1, "C")
     with pytest.raises(ValueError):
         k1.mcf_inverse(z, None, w, w1, b1, "E")
+
+
+@pytest.mark.gpu
+def test_batcher_on_the_card(cuda):
+    """The serving batcher at a small spec on the card: video shapes, the u8
+    wire's dtype, and the same requests alone and in one shared batch within
+    CUDA_BATCH_TOL (cuDNN may pick another algorithm per batch size)."""
+    import numpy as np
+
+    from ipoke_tpu_torch.flows.macow import FlowSpec
+    from ipoke_tpu_torch.models.encoders import WrapperSpec
+    from ipoke_tpu_torch.models.first_stage import FirstStageSpec
+    from ipoke_tpu_torch.models.second_stage import SecondStageSpec
+    from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher
+    from ipoke_tpu_torch.utils import synth
+
+    s, t = 32, 3
+    spec = SecondStageSpec(
+        flow=FlowSpec(num_steps=(1, 1), in_channels=16, hidden_channels=32, h_channels=32,
+                      factor=16, mcf_backend="cuda_unit"),
+        first_stage=FirstStageSpec(z_dim=16, spatial_size=s, max_frames=t, enc_channels=(16,) * 4,
+                                   dec_channels=(16,) * 3, n_gru_layers=2, min_spatial_size=8),
+        poke_embedder=WrapperSpec(nf_in=2, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                  deterministic=True),
+        conditioner=WrapperSpec(nf_in=3, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                deterministic=False))
+    params = synth.synth_params(spec, seed=0, device=cuda)
+    params = dict(params, flow=synth.set_flow_output_gains(params["flow"], 0.02))
+    rng = np.random.default_rng(0)
+    reqs = [(rng.uniform(-1, 1, (s, s, 3)).astype(np.float32),
+             rng.standard_normal((s, s, 2)).astype(np.float32), seed) for seed in (1, 2, 2**33 + 5)]
+    f32 = SampleBatcher(params, spec, BatcherConfig(max_batch=4, max_delay_ms=200.0))
+    u8 = SampleBatcher(params, spec, BatcherConfig(max_batch=4, max_delay_ms=200.0, wire_u8=True))
+    try:
+        n0 = k2.macow_unit_inverse.launches
+        solo = [f32.submit(x0, poke, seed, timeout=300) for x0, poke, seed in reqs]
+        assert k2.macow_unit_inverse.launches == n0 + 3 * 2 * 4   # 2 steps x 4 units per batch
+        handles = [f32.submit_async(x0, poke, seed) for x0, poke, seed in reqs]
+        for h in handles:
+            assert h.event.wait(300) and h.error is None
+        assert f32.stats.batch_hist == {1: 3, 4: 1}
+        for a, h in zip(solo, handles):
+            assert a.shape == (t, s, s, 3) and a.dtype == np.float32 and np.isfinite(a).all()
+            assert np.abs(a - h.result).max() <= CUDA_BATCH_TOL
+        v8 = u8.submit(*reqs[0], timeout=300)
+        assert v8.dtype == np.uint8 and v8.shape == (t, s, s, 3)
+        want = np.clip((solo[0] + 1.0) * 127.5, 0, 255).astype(np.uint8)
+        assert np.abs(v8.astype(np.int16) - want.astype(np.int16)).max() <= 1
+    finally:
+        f32.close()
+        u8.close()
