@@ -31,18 +31,31 @@ Phases, each fatal on failure:
              served npy video against forward_sample on the z that
              utils/prng draws from its seed, and three requests alone
              against the same three in one batch.
-  6. report  a JSON line of kernels, the card's line, and last
-             {"ok": true, "device": {...}}.
+  6. train   the training path: experiments/second_stage.train on iper_128
+             at full width and depth from JAX's init at seed 0, synthetic
+             data (B=8, 10 frames of 128^2), torch-Adam (lr 1e-3 after 2
+             warm-up steps, weight decay 1e-5), one warm-up step and 5 timed
+             steps; no kernel launches in a step.  Checked: finite losses and
+             grad norms, the float leaves moved, the frozen and integer leaves
+             bitwise as initialised, last.npz (the whole train state, in a
+             temporary directory) reloads to the trained params bitwise, and
+             reverse(forward(x)) on the trained flow returns the motion latent
+             within TRAIN_TOL with 200 K2 launches.
+  7. report  a JSON line of the train phase, a JSON line of kernels, the
+             card's line, and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
 from __future__ import annotations
 
 import http.client
-import io
+import io as pyio
 import json
+import os
 import re
+import shutil
 import sys
+import tempfile
 import threading
 import time
 from dataclasses import replace
@@ -58,6 +71,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from ipoke_tpu_torch import registry  # noqa: E402
+from ipoke_tpu_torch.ckpt import io  # noqa: E402
+from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage  # noqa: E402
+from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches  # noqa: E402
+from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
 from ipoke_tpu_torch.flows import transformer  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
@@ -66,6 +83,7 @@ from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
 from ipoke_tpu_torch.serve import loadtest  # noqa: E402
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
 from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
+from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
@@ -81,6 +99,9 @@ CROSS_GAIN = 0.02
 # MCF, 800 MCFs deep, and the decoder adds its own cuDNN f32 sums.
 CROSS_TOL = 2e-3
 SERVE_REQUESTS, SERVE_PROCS, SERVE_CONNS = 48, 2, 8
+TRAIN_STEPS = 5            # timed train steps, after one warm-up step
+# reverse(forward(x)) on the trained flow against x, 50 MaCowSteps deep in f32
+TRAIN_TOL = 1e-3
 
 
 def log(msg):
@@ -332,9 +353,9 @@ def phase_serve_check(device, spec, params, seeds=(11, 2**32 - 1, 2**40 + 3)):
     httpd, thread = _start_server(batcher)
     try:
         x0, poke, seed = reqs[0]
-        buf = io.BytesIO()
+        buf = pyio.BytesIO()
         np.savez(buf, x0=x0, poke=poke, seed=np.int64(seed), format=np.str_("npy"))
-        served = np.load(io.BytesIO(_http(httpd.server_address[1], "POST", "/sample", buf.getvalue(),
+        served = np.load(pyio.BytesIO(_http(httpd.server_address[1], "POST", "/sample", buf.getvalue(),
                                           {"Content-Type": "application/octet-stream"})))
         z_shape = transformer.reverse_input_shape(spec.flow, 1, spec.latent_size,
                                                   spec.flow_in_channels)[1:]
@@ -367,6 +388,135 @@ def phase_serve_check(device, spec, params, seeds=(11, 2**32 - 1, 2**40 + 3)):
         _stop_server(httpd, thread, batcher)
 
 
+def train_config(entry, b=BATCH, steps=TRAIN_STEPS):
+    """An in-memory config that trains the registry model ``entry`` at full
+    width and depth on the synthetic dataset: torch-Adam, lr 1e-3 after a
+    warm-up of 2 steps, weight decay 1e-5."""
+    wrapper = {"min_spatial_size": entry.min_spatial_size}
+    return {
+        "general": {"experiment": "chip_smoke", "seed": 0},
+        "first_stage": {"registry": entry.name},
+        "poke_embedder": {"spec": dict(wrapper, nf_max=entry.nf_max_poke)},
+        "conditioner": {"use": True, "spec": dict(wrapper, nf_max=entry.nf_max_cond)},
+        "data": {"spatial_size": [entry.spatial_size] * 2, "max_frames": entry.max_frames,
+                 "batch_size": b, "n_examples": 2 * b},
+        "architecture": {"num_steps": list(entry.num_steps), "factor": entry.factor,
+                         "flow_mid_channels_factor": entry.flow_mid_channels_factor,
+                         "kernel_size": [2, 3], "transform": "affine", "prior_transform": "affine",
+                         "activation": "elu", "condition_nice": False, "augmented_input": False},
+        "training": {"lr": 1e-3, "weight_decay": 1e-5, "lr_scaling_max_it": 2, "n_epochs": 1,
+                     "max_batches_per_epoch": 1 + steps},
+    }
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {k2: v2 for k, v in items for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def phase_train(device, card, entry, steps=TRAIN_STEPS):
+    """The training path: ``experiments/second_stage.train`` on ``entry`` at
+    full width and depth, B=8, one warm-up step then ``steps`` timed steps;
+    the launch counters read around it (neither kernel is on a train step).
+    Then: the trained float leaves moved and the frozen and integer leaves
+    did not (against a fresh ``init`` from the same seed); ``last.npz``
+    reloads through ``ckpt/io`` and the bridge to the trained params bitwise;
+    and ``transformer.reverse(transformer.forward(x))`` on 'cuda_unit' returns
+    the batch's motion latent within TRAIN_TOL with 200 K2 launches."""
+    config = train_config(entry, steps=steps)
+    spec = registry.build_specs(entry)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        k1.mcf_inverse.launches = 0
+        k2.macow_unit_inverse.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        run = experiment.train(config, dirs, device=device, max_steps=1 + steps)
+        n_step = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if run["spec"] != spec:
+            raise SystemExit(f"train: the config's spec is not the registry's {entry.name}")
+        hist = run["history"]
+        for i, h in enumerate(hist):
+            log(f"train [{card}]: step {i}{' (warm-up)' if i == 0 else ''}: flow_loss "
+                f"{h['flow_loss']:.6g}, nll {h['nll_loss']:.6g}, nlogdet {h['nlogdet_loss']:.6g}, "
+                f"grad_norm {h['grad_norm']:.6g}, {h['step_s'] * 1e3:.1f} ms")
+        step_ms = [h["step_s"] * 1e3 for h in hist]
+        timed = sorted(step_ms[1:])
+        median = timed[len(timed) // 2]
+        n_params = sum(t.numel() for t in train_ss.leaves(run["state"].params))
+        ckpt_gb = os.path.getsize(run["ckpt"]) / 1e9
+        log(f"train [{card}]: {entry.name} full width, {sum(spec.flow.num_steps)} MaCowSteps in "
+            f"{len(spec.flow.num_steps)} levels, {n_params / 1e9:.3f} G trainable params, B={BATCH}, "
+            f"{entry.max_frames} frames of {entry.spatial_size}^2: init {run['init_s']:.2f} s; step "
+            f"first {step_ms[0]:.1f} ms, median of {steps} {median:.1f} ms; peak "
+            f"{peak:.2f} GiB; K1/K2 launches in the steps {n_step[0]}/{n_step[1]}; last.npz "
+            f"{ckpt_gb:.2f} GB written in {run['save_s']:.1f} s ({free_gb:.0f} GB free before)")
+        if not all(np.isfinite(h["flow_loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+            raise SystemExit("train: a loss or grad norm is not finite")
+        if n_step != (0, 0):
+            raise SystemExit(f"train: a kernel launched in a train step: K1/K2 {n_step}")
+
+        trained = {**run["frozen"], **run["state"].params}
+        start = _flat(second_stage.init(prng.prng_key(config["general"]["seed"]), spec, device))
+        moved = kept = 0
+        for k, v in _flat(trained).items():
+            same = torch.equal(v.detach(), start[k])
+            trainable = k.split("/")[1] in train_ss.TRAINABLE_KEYS and v.is_floating_point()
+            if trainable:
+                moved += not same
+            elif not same:
+                raise SystemExit(f"train: the frozen or integer leaf {k} changed")
+            else:
+                kept += 1
+        n_float = sum(v.is_floating_point() for v in train_ss.leaves(run["state"].params))
+        del start
+        t0 = time.perf_counter()
+        saved, meta = io.load(run["ckpt"])
+        back = _flat(bridge_second_stage(saved["params"], spec, device))
+        load_s = time.perf_counter() - t0
+        ckpt_ok = back.keys() == _flat(run["state"].params).keys() and all(
+            torch.equal(back[k], v.detach()) for k, v in _flat(run["state"].params).items())
+        del saved, back
+        log(f"train: {moved} of {n_float} trainable float leaves moved, {kept} frozen and integer "
+            f"leaves bitwise as initialised; last.npz (step {meta['step']}) reloads to the trained "
+            f"params bitwise: {ckpt_ok} ({load_s:.1f} s)")
+        if moved < n_float // 2 or not ckpt_ok or meta["step"] != 1 + steps:
+            raise SystemExit("train: the params did not move, or last.npz does not reload to them")
+
+    batch = next(train_batches(from_data_config(config["data"]), BATCH, seed=1))
+    batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("images", "poke")}
+    flow = run["state"].params["flow"]
+    with torch.no_grad():
+        x, _ = second_stage.encode_first_stage(trained, spec, batch["images"])
+        cond = second_stage.embed_cond(trained, spec, batch["images"][:, 0], batch["poke"])
+        z, logdet = transformer.forward(flow, spec.flow, x, cond)
+        k1.mcf_inverse.launches = 0
+        k2.macow_unit_inverse.launches = 0
+        x_back = transformer.reverse(flow, replace(spec.flow, mcf_backend="cuda_unit"), z, cond)
+        torch.cuda.synchronize()
+        n_rt = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+    err = (x_back - x).abs().max().item()
+    log(f"train: round trip on the trained params: max |reverse(forward(x)) - x| {err:.3g} "
+        f"(tolerance {TRAIN_TOL}; |x| up to {x.abs().max().item():.3g}, logdet "
+        f"{logdet.mean().item():.6g}); K1/K2 launches {n_rt[0]}/{n_rt[1]} (want 0/"
+        f"{4 * sum(spec.flow.num_steps)})")
+    if not err <= TRAIN_TOL or n_rt != (0, 4 * sum(spec.flow.num_steps)):
+        raise SystemExit(f"train: the round trip failed ({err}, K1/K2 launches {n_rt})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"train: the phase took {phase_s:.1f} s")
+    return {"phase_s": phase_s, "init_s": run["init_s"], "save_s": run["save_s"],
+            "load_s": load_s, "step_ms_first": step_ms[0], "step_ms_median": median,
+            "step_ms": step_ms, "peak_gib": peak, "flow_loss": [h["flow_loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist], "ckpt_gb": ckpt_gb,
+            "roundtrip_max_abs_err": err,
+            "launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]},
+            "roundtrip_launches": {"mcf_inverse": n_rt[0], "macow_unit_inverse": n_rt[1]}}
+
+
 def ptxas_report(log_text):
     """registers / shared memory / spills lines of nvcc -Xptxas -v."""
     keep = [ln.strip() for ln in log_text.splitlines()
@@ -395,7 +545,8 @@ def main():
         for line in ptxas_report(info.log):
             log(f"build:   {line}")
 
-    spec = registry.build_specs(registry.MODELS[registry.FLAGSHIP])
+    entry = registry.MODELS[registry.FLAGSHIP]
+    spec = registry.build_specs(entry)
     spec = replace(spec, first_stage=replace(spec.first_stage, decode_dtype="bf16")).validate()
     levels = list(zip(spec.flow.level_channels(), spec.flow.num_steps))
     kernels = phase_kernels(device, card, flagship_levels=levels)
@@ -404,7 +555,7 @@ def main():
     params = synth.synth_params(spec, seed=0, device=device)
     params = dict(params, flow=synth.zero_flow_output_convs(params["flow"]))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in train_ss.leaves(params))
     log(f"slice: {registry.FLAGSHIP} full width, {sum(spec.flow.num_steps)} MaCowSteps in "
         f"{len(spec.flow.num_steps)} levels, {n_params / 1e9:.3f} G params "
         f"({4 * n_params / 1e9:.2f} GB f32) synthesised on the card in {time.perf_counter() - t0:.1f} s")
@@ -419,11 +570,15 @@ def main():
     phase_cross_check(device, spec, params)
     serve = phase_serve(card, spec, params, steady)
     phase_serve_check(device, spec, params)
+    del params
+    train = phase_train(device, card, entry)
 
     src = "ipoke_tpu_torch/csrc/{}.cu"
     rows = [
         dict(name=name, route="cuda", source=src.format(source), replaces=replaces,
              launches=res["launches"][name], serve_launches=serve["launches"][name],
+             train_step_launches=train["launches"][name],
+             train_roundtrip_launches=train["roundtrip_launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -435,21 +590,11 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -1,18 +1,24 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across between the JAX package and the port.
 
-Turns a second-stage param tree of ``ipoke_tpu`` (nested dicts and lists of
-numpy arrays, or an npz written by its ``ckpt/io.save``) into the port's
-params:
+``bridge_second_stage`` turns a second-stage param tree of ``ipoke_tpu``
+(nested dicts and lists of numpy arrays, or an npz written by its
+``ckpt/io.save``) into the port's params:
 
-* every conv kernel HWIO -> OIHW; transpose-conv kernels (the SPADE
-  decoder's upsampling blocks, a growing ``conv_adapt_*``) -> ``(in, out,
-  kh, kw)``; weight-norm ``v`` likewise, ``g`` carried as it is (the port
-  materialises ``w = g v / ||v||`` at run time, as the JAX package does);
+* every conv kernel HWIO -> OIHW (3D: DHWIO -> OIDHW); transpose-conv
+  kernels (the SPADE decoder's upsampling blocks, a growing
+  ``conv_adapt_*``) -> ``(in, out, kh, kw)``; weight-norm ``v`` likewise,
+  ``g`` carried as it is (the port materialises ``w = g v / ||v||`` at run
+  time, as the JAX package does);
 * the MaCowSteps of a level, stacked on a leading axis in JAX, become a list;
 * int permutation buffers become ``torch.long``;
-* what sampling does not use is dropped: the motion encoder
-  (``first_stage.enc_motion``), the decoder half of the tower wrappers and the
-  spectral-norm vectors ``u``.
+* what the port does not use is dropped: the decoder half of the tower
+  wrappers and the spectral-norm vectors ``u``.
+
+A component missing from the tree is missing from the result, so a training
+checkpoint's trainable subtree bridges too.  ``unbridge_second_stage`` is
+the inverse: the port's params (or any tree of that layout, an optimizer
+moment with None at the integer leaves) back to JAX's layouts as numpy, steps
+stacked and permutations int32, for ``ckpt/io.save``.
 """
 from __future__ import annotations
 
@@ -20,49 +26,10 @@ import numpy as np
 import torch
 
 from ipoke_tpu_torch import resolve_device
+from ipoke_tpu_torch.ckpt.io import load
+from ipoke_tpu_torch.nn import core
 
-SEP = "::"   # key separator of the JAX package's npz format
-
-
-def _unflatten(flat):
-    """The JAX package's ``::``-flattened npz dict -> nested dicts and lists."""
-    root = {}
-    lens = {k[: -len(SEP + "__len__")]: int(v) for k, v in flat.items()
-            if k.endswith(SEP + "__len__")}
-    for key, val in flat.items():
-        if key.endswith(SEP + "__len__"):
-            continue
-        parts = key.split(SEP)
-        node = root
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = np.asarray(val)
-
-    def listify(node, prefix=""):
-        if not isinstance(node, dict):
-            return node
-        if "__empty__" in node:
-            return {}
-        if "__none__" in node:
-            return None
-        out = {k: listify(v, f"{prefix}{SEP}{k}" if prefix else k) for k, v in node.items()}
-        if prefix in lens:
-            return [out[str(i)] for i in range(lens[prefix])]
-        return out
-
-    return listify(root)
-
-
-def load_npz(path):
-    """Numpy param tree (and metadata dict or None) of an ``ipoke_tpu`` npz."""
-    import json
-
-    with np.load(path if str(path).endswith(".npz") else f"{path}.npz", allow_pickle=False) as f:
-        data = dict(f)
-    meta = None
-    if "__metadata__" in data:
-        meta = json.loads(bytes(data.pop("__metadata__")).decode())
-    return _unflatten(data), meta
+KERNELS = ("w", "v")
 
 
 def _unstack(tree, i):
@@ -80,16 +47,15 @@ def _n_stacked(tree):
 
 
 def _convert(tree, device, transposed=False):
-    """Leaves to tensors; 4D kernels 'w'/'v' to the port's layouts."""
+    """Leaves to tensors; conv kernels 'w'/'v' to the port's layouts."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             if k == "u":
                 continue
-            if k in ("w", "v") and not isinstance(v, (dict, list)) and np.ndim(v) == 4:
-                v = np.asarray(v)
-                v = v.transpose(2, 3, 0, 1) if transposed else v.transpose(3, 2, 0, 1)
-                out[k] = torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            if k in KERNELS and not isinstance(v, (dict, list)) and np.ndim(v) in (4, 5):
+                w = torch.from_numpy(np.array(v, dtype=np.float32))
+                out[k] = core.from_hwio(w, transposed).to(device)
             else:
                 out[k] = _convert(v, device, transposed)
         return out
@@ -129,9 +95,19 @@ def _bridge_first_stage(fs, device):
             "out_conv": _convert(gen["out_conv"], device),
         },
     }
-    if "motion_bias" in fs:
-        out["motion_bias"] = _convert(fs["motion_bias"], device)
+    for key in ("enc_motion", "motion_bias"):
+        if key in fs:
+            out[key] = _convert(fs[key], device)
     return out
+
+
+def _adapters(spec):
+    """(name, grows) of each spatial-size adapter: a growing one is a
+    transpose conv."""
+    s = spec.first_stage.min_spatial_size
+    return [(name, w.min_spatial_size < s) for name, w in
+            (("conv_adapt_poke_emb", spec.poke_embedder), ("conv_adapt_cond", spec.conditioner))
+            if w is not None]
 
 
 def bridge_second_stage(tree, spec, device=None):
@@ -142,17 +118,78 @@ def bridge_second_stage(tree, spec, device=None):
     """
     device = resolve_device(device)
     if isinstance(tree, (str, bytes)) or hasattr(tree, "__fspath__"):
-        tree, _ = load_npz(tree)
-    out = {
-        "flow": bridge_flow(tree["flow"], device),
-        "first_stage": _bridge_first_stage(tree["first_stage"], device),
-        "poke_embedder": {"encoder": _convert(tree["poke_embedder"]["encoder"], device)},
-    }
-    if "conditioner" in tree:
-        out["conditioner"] = {"encoder": _convert(tree["conditioner"]["encoder"], device)}
-    s = spec.first_stage.min_spatial_size
-    for name, wspec in (("conv_adapt_poke_emb", spec.poke_embedder),
-                        ("conv_adapt_cond", spec.conditioner)):
+        tree, _ = load(tree)
+    out = {}
+    if "flow" in tree:
+        out["flow"] = bridge_flow(tree["flow"], device)
+    if "first_stage" in tree:
+        out["first_stage"] = _bridge_first_stage(tree["first_stage"], device)
+    for name in ("poke_embedder", "conditioner"):
         if name in tree:
-            out[name] = _convert(tree[name], device, transposed=wspec.min_spatial_size < s)
+            out[name] = {"encoder": _convert(tree[name]["encoder"], device)}
+    for name, grows in _adapters(spec):
+        if name in tree:
+            out[name] = _convert(tree[name], device, transposed=grows)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the inverse: the port's layouts -> the JAX package's, as numpy
+# ---------------------------------------------------------------------------
+
+def _export(tree, transposed=False):
+    if isinstance(tree, dict):
+        return {k: (np.ascontiguousarray(core.to_hwio(v, transposed).detach().cpu().numpy())
+                    if k in KERNELS and isinstance(v, torch.Tensor) and v.dim() in (4, 5)
+                    else _export(v, transposed))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_export(v, transposed) for v in tree]
+    if tree is None:
+        return None
+    a = tree.detach().cpu().numpy()
+    return a.astype(np.int32) if np.issubdtype(a.dtype, np.integer) else a
+
+
+def _stack(trees):
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: _stack([t[k] for t in trees]) for k in head}
+    if isinstance(head, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(head))]
+    return None if head is None else np.stack(trees)
+
+
+def unbridge_flow(flow):
+    return {"levels": [{"steps": _stack([_export(s) for s in level["steps"]]),
+                        "prior": _export(level["prior"]),
+                        "shuffle": _export(level["shuffle"])} for level in flow["levels"]]}
+
+
+def _unbridge_first_stage(fs):
+    gen = fs["gen"]
+    out = {k: _export(v) for k, v in fs.items() if k != "gen"}
+    out["gen"] = {
+        "in_block": _export(gen["in_block"]),
+        "blocks": [dict(_export({k: v for k, v in b.items() if k != "conv2"}, transposed=True),
+                        conv2=_export(b["conv2"])) for b in gen["blocks"]],
+        "spades": _export(gen["spades"]),
+        "out_conv": _export(gen["out_conv"]),
+    }
+    return out
+
+
+def unbridge_second_stage(params, spec):
+    """The port's params (any subset of the components) -> the JAX layouts."""
+    out = {}
+    if "flow" in params:
+        out["flow"] = unbridge_flow(params["flow"])
+    if "first_stage" in params:
+        out["first_stage"] = _unbridge_first_stage(params["first_stage"])
+    for name in ("poke_embedder", "conditioner"):
+        if name in params:
+            out[name] = {"encoder": _export(params[name]["encoder"])}
+    for name, grows in _adapters(spec):
+        if name in params:
+            out[name] = _export(params[name], transposed=grows)
     return out

@@ -14,6 +14,35 @@ import torch.nn.functional as F
 
 from ipoke_tpu_torch.nn import core
 from ipoke_tpu_torch.nn.core import activation, conv2d
+from ipoke_tpu_torch.utils import prng
+
+
+def init_wn_conv(key, kh, kw, c_in, c_out, device="cpu"):
+    """A fresh flow starts as the identity: ``g = 0`` zeroes the output conv."""
+    v = 0.05 * prng.normal(key, (kh, kw, c_in, c_out), device)
+    return {"v": core.from_hwio(v), "g": torch.zeros(c_out, device=device),
+            "b": torch.zeros(c_out, device=device)}
+
+
+def _torch_default_conv(key, shape, device):
+    return {"w": core.from_hwio(core.kaiming_uniform_torch_default(key, shape, device))}
+
+
+def init_shifted_conv(key, kernel_size, c_in, c_out, device="cpu"):
+    return _torch_default_conv(key, tuple(kernel_size) + (c_in, c_out), device)
+
+
+def init_mcf_block(key, c_in, c_out, kernel_size, hidden, h_channels=None, device="cpu"):
+    k1, k2 = prng.split(key)
+    return {"shift_conv": init_shifted_conv(k1, kernel_size, c_in, hidden, device),
+            "conv1x1": init_wn_conv(k2, 1, 1, hidden + (h_channels or 0), c_out, device=device)}
+
+
+def init_nice_conv_block(key, c_in, c_out, hidden, device="cpu"):
+    k1, k2, k3, _ = prng.split(key, 4)
+    return {"conv1": _torch_default_conv(k1, (3, 3, c_in, hidden), device),
+            "conv2": _torch_default_conv(k2, (1, 1, hidden, hidden), device),
+            "conv3": init_wn_conv(k3, 3, 3, hidden, c_out, device=device)}
 
 
 def wn_conv_apply(p, x, padding=0):

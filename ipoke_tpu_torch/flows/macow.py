@@ -4,6 +4,7 @@ multiscale flow (counterpart of ``ipoke_tpu/flows/macow.py``).
 Params are the JAX package's trees with one change: a level's MaCowSteps are
 a list (``levels[i]["steps"][s]``) instead of one tree stacked on a leading
 step axis.  ``forward`` returns ``(y, logdet[B])``; ``inverse`` is exact.
+The ``init_*`` functions draw JAX's params from JAX's key.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from ipoke_tpu_torch.flows import actnorm, mcf, nice, permute
 from ipoke_tpu_torch.flows.nice import nice_channels
 from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.ops.cuda.mcf_unit_inverse import macow_unit_inverse_cuda
+from ipoke_tpu_torch.utils import prng
 
 MCF_BACKENDS = ("scan", "cuda", "cuda_unit")
 
@@ -63,6 +65,20 @@ class FlowSpec:
 # MaCowUnit: MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D) -> ActNorm
 # ---------------------------------------------------------------------------
 
+def init_macow_unit(key, c, spec: FlowSpec, device="cpu"):
+    ks = prng.split(key, 7)
+    kh, kw = spec.kernel_size
+    kw_ = dict(h_channels=spec.h_channels or None, transform=spec.transform, device=device)
+    return {
+        "conv1": mcf.init_mcf(ks[0], c, (kh, kw), **kw_),
+        "conv2": mcf.init_mcf(ks[1], c, (kh, kw), **kw_),
+        "actnorm1": actnorm.init_actnorm(ks[2], c, device),
+        "conv3": mcf.init_mcf(ks[3], c, (kw, kh), **kw_),
+        "conv4": mcf.init_mcf(ks[4], c, (kw, kh), **kw_),
+        "actnorm2": actnorm.init_actnorm(ks[5], c, device),
+    }
+
+
 def _mcf_kw(spec):
     return dict(transform=spec.transform, alpha=spec.alpha, act=spec.activation)
 
@@ -101,6 +117,27 @@ _COUPLINGS = {
     "coupling2_up": ("skip", "up"),
     "coupling2_dn": ("skip", "down"),
 }
+
+
+def init_macow_step(key, c, spec: FlowSpec, device="cpu"):
+    ks = prng.split(key, 10)
+
+    def coupling(k, name):
+        split, order = _COUPLINGS[name]
+        return nice.init_nice(k, c, hidden=spec.hidden_channels, split_type=split, order=order,
+                              transform=spec.transform, device=device)
+
+    return {
+        "actnorm1": actnorm.init_actnorm(ks[0], c, device),
+        "conv1x1": permute.init_shuffle(ks[1], c, device),
+        "units1": [init_macow_unit(ks[2], c, spec, device), init_macow_unit(ks[3], c, spec, device)],
+        "coupling1_up": coupling(ks[4], "coupling1_up"),
+        "coupling1_dn": coupling(ks[5], "coupling1_dn"),
+        "actnorm2": actnorm.init_actnorm(ks[6], c, device),
+        "units2": [init_macow_unit(ks[7], c, spec, device), init_macow_unit(ks[8], c, spec, device)],
+        "coupling2_up": coupling(ks[9], "coupling2_up"),
+        "coupling2_dn": coupling(prng.fold_in(key, 11), "coupling2_dn"),
+    }
 
 
 def _nice(p, x, name, spec, inverse):
@@ -151,6 +188,18 @@ def macow_step_inverse(p, y, h, spec: FlowSpec):
 # MultiScalePrior: permutation -> NICE(cont, up, factor=level factor) -> ActNorm(z2)
 # ---------------------------------------------------------------------------
 
+def init_prior(key, c, level_factor, spec: FlowSpec, device="cpu"):
+    k1, k2, k3 = prng.split(key, 3)
+    _, z1c, _, _ = nice_channels(c, level_factor, "continuous", "up")
+    return {
+        "conv1x1": permute.init_shuffle(k1, c, device),
+        "coupling": nice.init_nice(k2, c, hidden=spec.hidden_channels, split_type="continuous",
+                                   order="up", factor=level_factor,
+                                   transform=spec.prior_transform, device=device),
+        "actnorm": actnorm.init_actnorm(k3, c - z1c, device),
+    }
+
+
 def _prior_kw(c, level_factor, spec):
     return dict(in_channels=c, factor=level_factor, split_type="continuous", order="up",
                 transform=spec.prior_transform, alpha=spec.alpha, act=spec.activation)
@@ -176,6 +225,23 @@ def prior_inverse(p, y, h, level_factor, spec: FlowSpec):
 # ---------------------------------------------------------------------------
 # multiscale flow
 # ---------------------------------------------------------------------------
+
+def init_level(key, i, c, f, n_steps, spec: FlowSpec, device="cpu"):
+    """Level ``i``: its steps from ``fold_in(fold_in(key, i), 100 + s)``, the
+    prior from ``.., 1)``, the shuffle from ``.., 2)``, as JAX keys them."""
+    kk = prng.fold_in(key, i)
+    return {
+        "steps": [init_macow_step(prng.fold_in(kk, 100 + s), c, spec, device)
+                  for s in range(n_steps)],
+        "prior": init_prior(prng.fold_in(kk, 1), c, f, spec, device),
+        "shuffle": permute.init_shuffle(prng.fold_in(kk, 2), c, device),
+    }
+
+
+def init_multiscale(key, spec: FlowSpec, device="cpu"):
+    return {"levels": [init_level(key, i, c, f, n, spec, device) for i, (c, f, n) in enumerate(
+        zip(spec.level_channels(), spec.level_factors(), spec.num_steps))]}
+
 
 def multiscale_forward(p, x, h, spec: FlowSpec):
     cs = spec.in_channels // spec.factor

@@ -29,6 +29,14 @@ def default_hidden(in_channels):
     return min(2 * in_channels, 512)
 
 
+def init_mcf(key, in_channels, kernel_size, h_channels=None, transform="affine", hidden=None,
+             device="cpu"):
+    out_channels = in_channels * get_transform(transform).n_params
+    return {"net": convnets.init_mcf_block(key, in_channels, out_channels, kernel_size,
+                                           hidden or default_hidden(in_channels),
+                                           h_channels=h_channels, device=device)}
+
+
 def forward(p, x, h=None, order="A", transform="affine", alpha=1.0, act="elu"):
     T = get_transform(transform)
     raw = convnets.mcf_block_apply(p["net"], x, order, h=h, act=act)

@@ -27,6 +27,18 @@ def nice_channels(in_channels, factor=2, split_type="continuous", order="up"):
     return split_type, z1_channels, net_in, out_channels
 
 
+def default_hidden(in_channels):
+    return min(8 * in_channels, 512)
+
+
+def init_nice(key, in_channels, hidden=None, split_type="continuous", order="up", factor=2,
+              transform="affine", device="cpu"):
+    _, _, net_in, out_base = nice_channels(in_channels, factor, split_type, order)
+    net_out = out_base * get_transform(transform).n_params
+    return {"net": convnets.init_nice_conv_block(key, net_in, net_out,
+                                                 hidden or default_hidden(in_channels), device)}
+
+
 def _split(x, in_channels, factor, split_type, order):
     split_type, z1c, _, _ = nice_channels(in_channels, factor, split_type, order)
     if split_type == "continuous":

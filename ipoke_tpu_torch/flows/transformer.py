@@ -1,7 +1,7 @@
 """Top-level flow wrappers (counterpart of ``ipoke_tpu/flows/transformer.py``):
-config dict -> FlowSpec, ``forward(params, spec, x, cond) -> (z, logdet)`` and
-``reverse(params, spec, z, cond) -> x``.  The multistack flow waits in
-ROADMAP queue 1.
+config dict -> FlowSpec, ``init(key, spec)``, ``forward(params, spec, x, cond)
+-> (z, logdet)`` and ``reverse(params, spec, z, cond) -> x``.  The multistack
+flow waits in ROADMAP queue 1.
 """
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ def spec_from_config(arch: dict, mcf_backend: str = "scan") -> FlowSpec:
         attention=bool(arch.get("attention", False)),
         mcf_backend=mcf_backend,
     )
+
+
+def init(key, spec: FlowSpec, device="cpu"):
+    return macow.init_multiscale(key, spec, device)
 
 
 def forward(params, spec: FlowSpec, x, cond):

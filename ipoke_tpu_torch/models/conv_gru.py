@@ -3,7 +3,24 @@ from __future__ import annotations
 
 import torch
 
+from ipoke_tpu_torch.nn import core
 from ipoke_tpu_torch.nn.core import conv2d
+from ipoke_tpu_torch.utils import prng
+
+
+def init_cell(key, input_size, hidden_size, kernel_size=3, device="cpu"):
+    def gate(k):
+        w = core.orthogonal(k, (kernel_size, kernel_size, input_size + hidden_size, hidden_size),
+                            device)
+        return {"w": core.from_hwio(w), "b": torch.zeros(hidden_size, device=device)}
+
+    ks = prng.split(key, 3)
+    return {"reset": gate(ks[0]), "update": gate(ks[1]), "out": gate(ks[2])}
+
+
+def init_stack(key, input_size, hidden_size, n_layers, kernel_size=3, device="cpu"):
+    return [init_cell(prng.fold_in(key, i), input_size if i == 0 else hidden_size, hidden_size,
+                      kernel_size, device) for i in range(n_layers)]
 
 
 def cell_apply(p, x, h, kernel_size=3):

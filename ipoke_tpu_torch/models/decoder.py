@@ -8,7 +8,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
-from ipoke_tpu_torch.nn.blocks import conv2d_block_apply, res_block_apply, spade_apply, spade_modulation
+from ipoke_tpu_torch.nn.blocks import (
+    conv2d_block_apply,
+    init_conv2d_block,
+    init_res_block,
+    init_spade,
+    res_block_apply,
+    spade_apply,
+    spade_modulation,
+)
+from ipoke_tpu_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -26,6 +35,21 @@ class SpadeDecoderSpec:
     @property
     def n_stages(self):
         return len(self.dec_channels) - 1
+
+
+def init(key, spec: SpadeDecoderSpec, device="cpu"):
+    ks = prng.split(key, 2 * spec.n_stages + 2)
+    nf_in = 2 * spec.z_dim if spec.stacked_input else spec.z_dim
+    ch = spec.dec_channels
+    return {
+        "in_block": init_res_block(ks[0], nf_in, ch[0], norm=spec.norm, device=device),
+        "blocks": [init_res_block(ks[1 + i], 2 * nf if i < spec.n_skip_stages else ch[i], nf,
+                                  norm="none", upsampling=True, device=device)
+                   for i, nf in enumerate(ch[1:])],
+        "spades": [init_spade(ks[1 + spec.n_stages + i], nf, device)
+                   for i, nf in enumerate(ch[1:])],
+        "out_conv": init_conv2d_block(ks[-1], ch[-1], spec.out_channels, 3, device=device),
+    }
 
 
 def stage_resolutions(spec: SpadeDecoderSpec):

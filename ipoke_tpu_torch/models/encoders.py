@@ -1,7 +1,8 @@
 """Conditioning towers (counterpart of ``ipoke_tpu/models/encoders.py``):
 the ConvEncoder half of FirstStageWrapper, used frozen at sampling as the
 poke embedder and the image conditioner.  The decoder half waits in ROADMAP
-queue 1.
+queue 1; ``init_wrapper`` splits its key as JAX does but draws only the
+encoder.
 """
 from __future__ import annotations
 
@@ -10,7 +11,15 @@ from dataclasses import dataclass
 
 import torch
 
-from ipoke_tpu_torch.nn.blocks import conv2d_block_apply, norm_conv2d_apply, res_block_apply
+from ipoke_tpu_torch.nn.blocks import (
+    conv2d_block_apply,
+    init_conv2d_block,
+    init_norm_conv2d,
+    init_res_block,
+    norm_conv2d_apply,
+    res_block_apply,
+)
+from ipoke_tpu_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -21,6 +30,25 @@ class ConvEncoderSpec:
     variational: bool = False
     norm: str = "group"
     spectral_norm: bool = True
+
+
+def init_conv_encoder(key, spec: ConvEncoderSpec, device="cpu"):
+    ks = prng.split(key, spec.n_stages + 3)
+    nf = 32
+    p = {"stem": init_conv2d_block(ks[0], spec.nf_in, nf, 3, norm=spec.norm, device=device),
+         "blocks": []}
+    for n in range(spec.n_stages - 1):
+        nf_out = min(nf * 2, spec.nf_max)
+        p["blocks"].append(init_res_block(ks[1 + n], nf, nf_out, norm=spec.norm, stride=2,
+                                          device=device))
+        nf = nf_out
+    p["bottleneck"] = init_res_block(ks[spec.n_stages], nf, spec.nf_max, norm=spec.norm,
+                                     device=device)
+    if spec.variational:
+        p["make_mu"] = init_norm_conv2d(ks[spec.n_stages + 1], 3, spec.nf_max, spec.nf_max, device)
+        p["make_sigma"] = init_norm_conv2d(ks[spec.n_stages + 2], 3, spec.nf_max, spec.nf_max,
+                                           device)
+    return p
 
 
 def conv_encoder_apply(params, x, spec: ConvEncoderSpec):
@@ -63,6 +91,11 @@ class WrapperSpec:
         nf_in = self.nf_in + (3 if self.poke_and_image else 0)
         return ConvEncoderSpec(nf_in=nf_in, nf_max=self.nf_max, n_stages=self.n_stages,
                                variational=not self.deterministic)
+
+
+def init_wrapper(key, spec: WrapperSpec, device="cpu"):
+    k1, _ = prng.split(key)   # the second key is the decoder half's
+    return {"encoder": init_conv_encoder(k1, spec.encoder_spec, device)}
 
 
 def wrapper_encode(params, x, spec: WrapperSpec):

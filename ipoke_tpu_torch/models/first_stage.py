@@ -1,8 +1,7 @@
-"""First-stage video autoencoder, decode half (counterpart of
-``ipoke_tpu/models/first_stage.py``).
+"""First-stage video autoencoder (counterpart of ``ipoke_tpu/models/first_stage.py``).
 
+encode: video --3D ResNet (``models/motion_encoder``)--> motion latent.
 decode: motion latent + start frame --ConvGRU + SPADE decoder--> frames.
-The 3D-ResNet encoder waits in ROADMAP queue 1 (density direction).
 """
 from __future__ import annotations
 
@@ -11,9 +10,10 @@ from typing import Tuple
 
 import torch
 
-from ipoke_tpu_torch.models import conv_gru, decoder
+from ipoke_tpu_torch.models import conv_gru, decoder, motion_encoder
 from ipoke_tpu_torch.models.decoder import SpadeDecoderSpec
 from ipoke_tpu_torch.models.motion_encoder import MotionEncoderSpec
+from ipoke_tpu_torch.utils import prng
 
 DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -51,6 +51,19 @@ class FirstStageSpec:
             spatial_size=self.spatial_size, min_spatial_size=self.min_spatial_size,
             norm=self.norm, spectral_norm=self.spectral_norm,
         )
+
+
+def init(key, spec: FirstStageSpec, device="cpu"):
+    ks = prng.split(key, 4)
+    p = {
+        "enc_motion": motion_encoder.init(ks[0], spec.encoder_spec, device),
+        "rnn": conv_gru.init_stack(ks[1], spec.z_dim, spec.z_dim, spec.n_gru_layers, device=device),
+        "gen": decoder.init(ks[2], spec.decoder_spec, device),
+    }
+    if spec.motion_bias:
+        s = spec.min_spatial_size
+        p["motion_bias"] = prng.normal(ks[3], (1, s, s, spec.z_dim), device)
+    return p
 
 
 def _cast_floats(tree, dtype):

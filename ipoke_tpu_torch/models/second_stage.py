@@ -1,10 +1,12 @@
-"""Second stage, sampling direction (counterpart of
-``ipoke_tpu/models/second_stage.py``).
+"""Second stage (counterpart of ``ipoke_tpu/models/second_stage.py``).
 
-  sample:  z ~ N(0,1) -> flow^{-1}(z, cond) -> first-stage decode
-  cond   = [conditioner(x0) mean, poke_embedder(poke)]
+  density (train): z_motion = motion encoder(video);
+                   (gauss, logdet) = flow(z_motion, cond)
+  sample:          z ~ N(0,1) -> flow^{-1}(z, cond) -> first-stage decode
+  cond           = [conditioner(x0) mean, poke_embedder(poke)]
 
-The density direction (training) waits in ROADMAP queue 1.
+The first stage and the towers are frozen: they run under ``torch.no_grad``
+where JAX stops their gradient.  ``init`` draws JAX's params from JAX's key.
 """
 from __future__ import annotations
 
@@ -14,12 +16,15 @@ from typing import Optional
 
 import torch
 
+from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.flows.macow import FlowSpec
-from ipoke_tpu_torch.models import encoders, first_stage
+from ipoke_tpu_torch.models import encoders, first_stage, motion_encoder
 from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
+from ipoke_tpu_torch.nn.blocks import init_conv
 from ipoke_tpu_torch.nn.core import conv2d, conv_transpose2d
+from ipoke_tpu_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -102,6 +107,46 @@ class SecondStageSpec:
         )
 
 
+def components(spec: SecondStageSpec):
+    """The top-level keys of a second stage's params for ``spec``."""
+    keys = ["flow", "first_stage", "poke_embedder"]
+    if spec.use_cond:
+        keys.append("conditioner")
+    s = spec.first_stage.min_spatial_size
+    if spec.poke_embedder.min_spatial_size != s:
+        keys.append("conv_adapt_poke_emb")
+    if spec.use_cond and spec.conditioner.min_spatial_size != s:
+        keys.append("conv_adapt_cond")
+    if spec.augment_channels:
+        keys += ["scale_augment", "shift_augment"]
+    return keys
+
+
+def init(key, spec: SecondStageSpec, device=None, only=None):
+    """Fresh params of every component, or of the components named in
+    ``only``: each from its own subkey of ``split(key, 6)``, as JAX draws them,
+    on ``device`` (the CUDA card by default)."""
+    device = resolve_device(device)
+    if spec.augment_channels:
+        raise NotImplementedError("augmented flow input is not ported yet (ROADMAP.md queue 1)")
+    ks = prng.split(key, 6)
+    s = spec.first_stage.min_spatial_size
+
+    def adapter(k, wspec):   # grows by a transpose conv, shrinks by a strided conv
+        return init_conv(k, 3, 3, wspec.nf_max, wspec.nf_max,
+                         transposed=wspec.min_spatial_size < s, device=device)
+
+    make = {
+        "flow": lambda: transformer.init(ks[0], spec.flow, device),
+        "first_stage": lambda: first_stage.init(ks[1], spec.first_stage, device),
+        "poke_embedder": lambda: encoders.init_wrapper(ks[2], spec.poke_embedder, device),
+        "conditioner": lambda: encoders.init_wrapper(ks[3], spec.conditioner, device),
+        "conv_adapt_poke_emb": lambda: adapter(ks[4], spec.poke_embedder),
+        "conv_adapt_cond": lambda: adapter(ks[5], spec.conditioner),
+    }
+    return {k: make[k]() for k in components(spec) if only is None or k in only}
+
+
 def _adapt(p_conv, x, src_size, tgt_size):
     """Spatial-size adapter: strided conv when shrinking, transpose conv
     (weight ``(in, out, kh, kw)``) when growing."""
@@ -117,13 +162,15 @@ def embed_cond(params, spec: SecondStageSpec, x0, poke):
     """cond = cat([conditioner(x0) mean, poke_embedder(poke)]): (B, s, s, h_channels)."""
     if spec.poke_and_image:
         poke = torch.cat([poke, x0], dim=-1)
-    poke_emb, _, _ = encoders.wrapper_encode(params["poke_embedder"], poke, spec.poke_embedder)
+    with torch.no_grad():
+        poke_emb, _, _ = encoders.wrapper_encode(params["poke_embedder"], poke, spec.poke_embedder)
     if "conv_adapt_poke_emb" in params:
         poke_emb = _adapt(params["conv_adapt_poke_emb"], poke_emb,
                           spec.poke_embedder.min_spatial_size, spec.first_stage.min_spatial_size)
     if not spec.use_cond:
         return poke_emb
-    out, mean, _ = encoders.wrapper_encode(params["conditioner"], x0, spec.conditioner)
+    with torch.no_grad():
+        out, mean, _ = encoders.wrapper_encode(params["conditioner"], x0, spec.conditioner)
     cond = out if spec.conditioner.deterministic else mean
     if "conv_adapt_cond" in params:
         cond = _adapt(params["conv_adapt_cond"], cond,
@@ -131,23 +178,52 @@ def embed_cond(params, spec: SecondStageSpec, x0, poke):
     return torch.cat([cond, poke_emb], dim=-1)
 
 
+def encode_first_stage(params, spec: SecondStageSpec, x):
+    """(motion, mu) of the frozen motion encoder, with the reference's choice
+    of frames: all of them, except that a non-full-sequence first stage drops
+    the last frame of 16 or more (full_seq) or the first frame (otherwise)."""
+    fs = spec.first_stage
+    if spec.full_seq:
+        x_in = x if (fs.full_sequence or x.shape[1] < 16) else x[:, :-1]
+    else:
+        x_in = x if fs.full_sequence else x[:, 1:]
+    with torch.no_grad():
+        motion, mu, _ = motion_encoder.apply(params["first_stage"]["enc_motion"], x_in,
+                                             fs.encoder_spec)
+    return motion, mu
+
+
+def forward_density(params, spec: SecondStageSpec, batch):
+    """Training direction.  batch: {'images': (B,T,S,S,3), 'poke': (B,S,S,2)}.
+    Returns (gaussianized, logdet, cond).  JAX's ``rng`` draws the augmented
+    channels, which are not ported (``init`` raises on them)."""
+    x = batch["images"]
+    poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
+    cond = embed_cond(params, spec, x[:, 0], poke)
+    flow_input, _ = encode_first_stage(params, spec, x)
+    out, logdet = transformer.forward(params["flow"], spec.flow, flow_input, cond)
+    return out, logdet, cond
+
+
 def decode_first_stage(params, spec: SecondStageSpec, motion, x0, length: int):
     return first_stage.decode(params["first_stage"], motion, x0, spec.first_stage, length)
 
 
 @torch.no_grad()
-def forward_sample(params, spec: SecondStageSpec, batch, generator: Optional[torch.Generator] = None,
-                   n_samples: int = 1, length: Optional[int] = None,
-                   add_first_frame: bool = False, z: Optional[torch.Tensor] = None):
+def forward_sample(params, spec: SecondStageSpec, batch, rng=None, n_samples: int = 1,
+                   length: Optional[int] = None, add_first_frame: bool = False,
+                   z: Optional[torch.Tensor] = None):
     """``n_samples`` stochastic videos for each batch element:
     (n_samples, B, T, S, S, 3).
 
     batch: {'images': (B,T,S,S,3), 'poke': (B,S,S,2)} (or 'flow' when the
     poke is a flow field).  ``z`` fixes the Gaussian draw, shape
-    ``reverse_input_shape(...)`` or with a leading samples axis; else it is
-    drawn from ``generator``.  The samples are folded into the batch axis.
-    Every op is per example, so a caller that fixes z per request gets
-    outputs that do not depend on which other requests share the batch.
+    ``reverse_input_shape(...)`` or with a leading samples axis; else sample
+    i draws ``prng.normal(keys[i], z_shape)`` in f32 from the JAX key ``rng``
+    with ``keys = prng.split(rng, n_samples)``, JAX's draw.  The samples are
+    folded into the batch axis.  Every op is per example, so a caller that
+    fixes z per request gets outputs that do not depend on which other
+    requests share the batch.
     """
     x = batch["images"]
     poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
@@ -157,10 +233,9 @@ def forward_sample(params, spec: SecondStageSpec, batch, generator: Optional[tor
         length = x.shape[1] - 1
     z_shape = transformer.reverse_input_shape(spec.flow, b, spec.latent_size, spec.flow_in_channels)
     if z is None:
-        if generator is None:
-            raise ValueError("forward_sample needs a fixed z or a torch.Generator")
-        z = torch.randn((n_samples,) + tuple(z_shape), generator=generator,
-                        device=x.device, dtype=x.dtype)
+        if rng is None:
+            raise ValueError("forward_sample needs a fixed z or a JAX key rng")
+        z = torch.stack([prng.normal(k, z_shape, x.device) for k in prng.split(rng, n_samples)])
     elif z.dim() == len(z_shape):
         z = z[None]
     n = z.shape[0]

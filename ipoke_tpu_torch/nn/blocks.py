@@ -2,7 +2,8 @@
 
 Spectral-norm power-iteration vectors ``u`` play no part at inference (the
 JAX package applies ``w`` as stored), so the port neither carries nor uses
-them.
+them; the ``init_*`` functions skip their draw, which no other key depends on.
+``transposed=True`` gives a kernel for ``conv_transpose2d``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,59 @@ from ipoke_tpu_torch.nn.core import (
     instance_norm,
     resize_bilinear_align_corners,
 )
+from ipoke_tpu_torch.utils import prng
+
+
+def init_conv(key, kh, kw, c_in, c_out, transposed=False, device="cpu"):
+    """torch's default conv init (the JAX package's ``init='torch'``)."""
+    kw_, kb = prng.split(key)
+    shape = (kh, kw, c_in, c_out)
+    return {"w": core.from_hwio(core.kaiming_uniform_torch_default(kw_, shape, device), transposed),
+            "b": core.conv_bias_torch_default(kb, shape, c_out, device)}
+
+
+def init_conv2d_block(key, c_in, c_out, ks, norm="none", transposed=False, device="cpu"):
+    k1, _ = prng.split(key)
+    p = {"conv": init_conv(k1, ks, ks, c_in, c_out, transposed=transposed, device=device)}
+    if norm == "group":
+        p["norm"] = {"gamma": torch.ones(c_out, device=device),
+                     "beta": torch.zeros(c_out, device=device)}
+    return p
+
+
+def init_convT2d_block(key, c_in, c_out, ks, norm="none", device="cpu"):
+    """The kernel of ``convT2d_block_apply``: ``(in, out, kh, kw)``."""
+    return init_conv2d_block(key, c_in, c_out, ks, norm, transposed=True, device=device)
+
+
+def init_res_block(key, c_in, c_out, norm="in", upsampling=False, stride=1, device="cpu"):
+    k1, k2, k3 = prng.split(key, 3)
+    first = init_convT2d_block if upsampling else init_conv2d_block   # conv1 and res_conv
+    p = {"conv1": first(k1, c_in, c_out, 3, norm, device=device),
+         "conv2": init_conv2d_block(k2, c_out, c_out, 3, norm, device=device)}
+    if c_in != c_out or upsampling or stride != 1:
+        p["res_conv"] = first(k3, c_in, c_out, 3, "none", device=device)
+    return p
+
+
+def init_norm_conv2d(key, ks, c_in, c_out, device="cpu"):
+    k1, _ = prng.split(key)
+    shape = (ks, ks, c_in, c_out)
+    v = core.kaiming_uniform_torch_default(k1, shape, device)
+    return {
+        "v": core.from_hwio(v),
+        "g": v.square().sum(dim=(0, 1, 2)).sqrt(),   # torch weight_norm init: g = ||v||
+        "b": core.conv_bias_torch_default(prng.fold_in(key, 3), shape, c_out, device),
+        "gamma": torch.ones((1, 1, 1, c_out), device=device),
+        "beta": torch.zeros((1, 1, 1, c_out), device=device),
+    }
+
+
+def init_spade(key, num_features, device="cpu"):
+    k1, k2, k3 = prng.split(key, 3)
+    return {"conv": init_conv(k1, 3, 3, 3, 128, device=device),
+            "conv_gamma": init_conv(k2, 3, 3, 128, num_features, device=device),
+            "conv_beta": init_conv(k3, 3, 3, 128, num_features, device=device)}
 
 
 def _norm(y, p, norm):

@@ -4,14 +4,93 @@ Conventions
 -----------
 * Activations are NHWC, as in the JAX package; each op views them as NCHW
   for ``torch.nn.functional`` and returns NHWC.
-* Conv weights are torch's OIHW; transpose-conv weights are torch's
-  ``(in, out, kh, kw)``.  ``ckpt/jax_bridge.py`` maps the JAX package's HWIO
-  kernels onto these layouts.
+* Conv weights are torch's OIHW (OIDHW in 3D); transpose-conv weights are
+  torch's ``(in, out, kh, kw)``.  ``ckpt/jax_bridge.py`` maps the JAX
+  package's HWIO kernels onto these layouts.
+* The initialisers draw JAX's numbers from JAX's key (``utils/prng``) in the
+  JAX layout (HWIO / DHWIO); :func:`from_hwio` moves a kernel to the port's.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+from ipoke_tpu_torch.utils import prng
+
+
+class Policy:
+    """Mixed precision: params in f32, compute in ``compute_dtype``."""
+
+    def __init__(self, compute_dtype=torch.float32):
+        self.compute_dtype = compute_dtype
+
+    def cast(self, tree):
+        """Every floating-point tensor of ``tree`` in ``compute_dtype``."""
+        if isinstance(tree, dict):
+            return {k: self.cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.cast(v) for v in tree)
+        if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+            return tree.to(self.compute_dtype)
+        return tree
+
+
+# ---------------------------------------------------------------------------
+# initializers: JAX's draws, in JAX's layout
+# ---------------------------------------------------------------------------
+
+def _fan_in_out_conv(shape):
+    rf = math.prod(shape[:-2])
+    return shape[-2] * rf, shape[-1] * rf
+
+
+def kaiming_normal(key, shape, device="cpu"):
+    """kaiming_normal in fan_out mode."""
+    _, fan_out = _fan_in_out_conv(shape)
+    return math.sqrt(2.0 / fan_out) * prng.normal(key, shape, device)
+
+
+def kaiming_uniform_torch_default(key, shape, device="cpu"):
+    """torch's default conv init, kaiming_uniform(a=sqrt(5))."""
+    fan_in, _ = _fan_in_out_conv(shape)
+    bound = math.sqrt(2.0 / (1 + 5.0)) * math.sqrt(3.0 / fan_in)
+    return prng.uniform(key, shape, -bound, bound, device)
+
+
+def conv_bias_torch_default(key, shape_w, n_out, device="cpu"):
+    fan_in, _ = _fan_in_out_conv(shape_w)
+    bound = 1.0 / math.sqrt(fan_in)
+    return prng.uniform(key, (n_out,), -bound, bound, device)
+
+
+def orthogonal(key, shape, device="cpu"):
+    """Orthogonal init over a conv kernel (all-but-last dims x last dim):
+    QR of JAX's normal draw with its sign fix ``q * sign(diag r)``."""
+    n_rows, n_cols = shape[-1], math.prod(shape[:-1])
+    a = prng.normal(key, (max(n_rows, n_cols), min(n_rows, n_cols)), device)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape((n_rows,) + tuple(shape[:-1])).permute(
+        tuple(range(1, len(shape))) + (0,))
+
+
+def from_hwio(w, transposed=False):
+    """A JAX kernel (HWIO, DHWIO) in the port's layout: OIHW / OIDHW, or
+    ``(in, out, kh, kw)`` for a transpose conv."""
+    if w.dim() == 5:
+        return w.permute(4, 3, 0, 1, 2).contiguous()
+    return w.permute((2, 3, 0, 1) if transposed else (3, 2, 0, 1)).contiguous()
+
+
+def to_hwio(w, transposed=False):
+    """The inverse of :func:`from_hwio`."""
+    if w.dim() == 5:
+        return w.permute(2, 3, 4, 1, 0).contiguous()
+    return w.permute((2, 3, 0, 1) if transposed else (2, 3, 1, 0)).contiguous()
 
 
 def _nchw(x):
@@ -44,12 +123,18 @@ def conv_transpose2d(x, w, b=None, stride=2, padding=1, output_padding=1):
     return _nhwc(y)
 
 
+def conv3d(x, w, stride=1, padding=0):
+    """3D conv without bias, NDHWC x OIDHW; ``stride``/``padding`` an int or 3 ints."""
+    y = F.conv3d(x.movedim(-1, 1), w.to(x.dtype), stride=stride, padding=padding)
+    return y.movedim(1, -1)
+
+
 def group_norm(x, gamma=None, beta=None, num_groups=16, eps=1e-5):
-    """GroupNorm over NHWC with contiguous channel groups."""
+    """GroupNorm over NHWC or NDHWC with contiguous channel groups."""
     c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    y = _nhwc(F.group_norm(_nchw(x), num_groups, eps=eps))
+    y = F.group_norm(x.movedim(-1, 1), num_groups, eps=eps).movedim(1, -1)
     if gamma is not None:
         y = y * gamma.to(y.dtype)
     if beta is not None:

@@ -14,6 +14,11 @@ alone.  This module gives the same numbers from the same seed:
   trick) and ``jax.random.normal`` (``sqrt(2) * erfinv(u)`` over
   ``[nextafter(-1, 0), 1)``), with ``erfinv`` in the single-precision
   polynomial of Giles that XLA lowers ``erf_inv`` to.
+* ``split``, ``fold_in`` and ``permutation`` derive keys and shuffles as
+  ``jax.random`` does, so the port's ``init`` draws JAX's parameters from
+  JAX's seed: ``split(key, n)`` hashes the counters ``(0, i)``, ``fold_in``
+  the counter ``(0, data)``, and ``permutation`` sorts ``range(n)`` stably by
+  the bits of ``split(key)[1]`` (one sort round, as JAX does up to n ~ 1600).
 
 torch's uint32 support is thin, so the words live in int64 tensors masked to
 32 bits.  Every function runs on the device of its input (or ``device``), as
@@ -45,6 +50,29 @@ def prng_key(seed: int):
     if not 0 <= seed <= MASK:
         raise ValueError(f"seed {seed} is not a uint32; mask it with & 0xFFFFFFFF first")
     return 0, seed
+
+
+def split(key, n: int = 2):
+    """``jax.random.split(key, n)`` as a list of ``n`` keys."""
+    return [threefry2x32(key, 0, i) for i in range(n)]
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``."""
+    return threefry2x32(key, 0, int(data) & MASK)
+
+
+def permutation(key, n: int, device="cpu"):
+    """``jax.random.permutation(key, n)``: ``range(n)`` sorted stably by 32
+    random bits each, in as many rounds as JAX takes; the port does one."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK))
+    if rounds > 1:
+        raise NotImplementedError(f"permutation of {n} takes {rounds} sort rounds; the port does one")
+    idx = torch.arange(n, dtype=torch.int64, device=torch.device(device))
+    if rounds == 0:
+        return idx
+    bits = random_bits(split(key)[1], (n,), device)
+    return idx[torch.sort(bits, stable=True).indices]
 
 
 def _rotl(x, d):

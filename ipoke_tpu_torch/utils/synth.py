@@ -1,9 +1,9 @@
 """Parameter synthesis for timing and smoke runs (counterpart of
 ``ipoke_tpu/utils/synth.py``).
 
-``param_shapes(spec)`` gives the port's second-stage parameter tree for the
-sampling path (layouts as the bridge produces them: OIHW convs, ``(in, out,
-kh, kw)`` transpose convs, one tree per MaCowStep), with each leaf a
+``param_shapes(spec)`` gives the port's second-stage parameter tree
+(layouts as the bridge produces them: OIHW / OIDHW convs, ``(in, out, kh,
+kw)`` transpose convs, one tree per MaCowStep), with each leaf a
 ``Leaf(kind, shape)``.  ``synth_params`` fills it on the device from a seeded
 ``torch.Generator``: float leaves N(0, 0.05), permutation leaves a valid
 random permutation each, as the JAX package's ``synth_params`` does.
@@ -126,12 +126,42 @@ def _encoder(wspec):
     return {"encoder": p}
 
 
+def _motion_encoder(spec):
+    channels, stride1, stride4, has_l4, has_l5, last_c = spec.derived()
+
+    def gn(c):
+        return {"gamma": _f(c), "beta": _f(c)}
+
+    def block(c_in, c_out, stride):
+        p = {"conv1": {"w": _f(c_out, c_in, 3, 3, 3)}, "gn1": gn(c_out),
+             "conv2": {"w": _f(c_out, c_out, 3, 3, 3)}, "gn2": gn(c_out)}
+        if stride != (1, 1, 1) or c_in != c_out:
+            p["down"] = {"w": _f(c_out, c_in, 1, 1, 1), "gn": gn(c_out)}
+        return p
+
+    def layer(i, stride):
+        c_in, c_out = channels[i - 1], channels[i]
+        return [block(c_in, c_out, stride)] + [block(c_out, c_out, (1, 1, 1))
+                                               for _ in range(spec.layers[min(i, 4) - 1] - 1)]
+
+    p = {"conv1": {"w": _f(channels[0], 3, 3, 7, 7)}, "gn1": gn(channels[0]),
+         "layer1": layer(1, stride1), "layer2": layer(2, (2, 2, 2)), "layer3": layer(3, (2, 2, 2)),
+         "conv_mu": {"w": _f(spec.z_dim, last_c, 3, 3), "b": _f(spec.z_dim)},
+         "conv_var": {"w": _f(spec.z_dim, last_c, 3, 3), "b": _f(spec.z_dim)}}
+    if has_l4:
+        p["layer4"] = layer(4, stride4)
+    if has_l5:
+        p["layer5"] = layer(5, (2, 2, 2))
+    return p
+
+
 def _first_stage(fs):
     z = fs.z_dim
     gate = {"w": _f(z, 2 * z, 3, 3), "b": _f(z)}
     dec = fs.decoder_spec
     ch = dec.dec_channels
     p = {
+        "enc_motion": _motion_encoder(fs.encoder_spec),
         "rnn": [{"reset": dict(gate), "update": dict(gate), "out": dict(gate)}
                 for _ in range(fs.n_gru_layers)],
         "gen": {

@@ -229,3 +229,58 @@ def test_batcher_on_the_card(cuda):
     finally:
         f32.close()
         u8.close()
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two train steps of a tiny second stage (torch-Adam, lr 1e-5 from step
+    0) on the card and on the CPU from the same params, batch and keys: loss,
+    grad norm and the updated params within 1e-4·(1+|ref|).  At lr 1e-5 a
+    first Adam step moves a param by ~lr, so a gradient that cuDNN rounds to
+    the other sign stays inside the tolerance."""
+    from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches
+    from ipoke_tpu_torch.experiments.second_stage import build_spec_from_config
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.train import second_stage as train
+    from ipoke_tpu_torch.utils import prng, synth
+
+    config = {
+        "general": {"seed": 0},
+        "first_stage": {"spec": {"z_dim": 16, "ENC_M_channels": [16] * 4, "dec_channels": [16] * 4,
+                                 "n_gru_layers": 2, "min_spatial_size": 8}},
+        "poke_embedder": {"spec": {"nf_max": 16}}, "conditioner": {"spec": {"nf_max": 16}},
+        "data": {"spatial_size": [64, 64], "max_frames": 3, "n_examples": 4},
+        "architecture": {"flow_mid_channels_factor": 2, "num_steps": [1, 1]},
+    }
+    spec = build_spec_from_config(config)
+    params = second_stage.init(prng.prng_key(0), spec, device="cpu")
+    params["flow"] = synth.set_flow_output_gains(params["flow"], 0.05)
+    batch = next(train_batches(from_data_config(config["data"]), 2))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = {k: _copy_to(v, dev) for k, v in params.items()}
+        trainable, frozen = train.split_params(p)
+        opt = train.make_optimizer(lr=1e-5, warmup_steps=0, total_steps=10)
+        state = train.init_state(trainable, opt)
+        step = train.make_train_step(spec, frozen, opt)
+        b = {k: torch.from_numpy(batch[k]).to(dev) for k in ("images", "poke")}
+        metrics = []
+        for i in range(2):
+            state, m = step(state, b, prng.prng_key(i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((metrics, train.float_leaves(state.params)))
+    (ref_m, ref_p), (got_m, got_p) = runs
+    for r, g in zip(ref_m, got_m):
+        for k in ("flow_loss", "grad_norm", "nll_loss", "nlogdet_loss", "reference_nll_loss"):
+            assert abs(g[k] - r[k]) <= 1e-4 * (1 + abs(r[k])), (k, g[k], r[k])
+    assert len(ref_p) == len(got_p) > 100
+    for r, g in zip(ref_p, got_p):
+        torch.testing.assert_close(g.detach().cpu(), r.detach(), rtol=1e-4, atol=1e-4)
+
+
+def _copy_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_to(v, device) for v in tree]
+    return tree.to(device, copy=True)

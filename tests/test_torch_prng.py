@@ -56,3 +56,32 @@ def test_uniform_and_seed_range():
         prng.prng_key(2**32)
     with pytest.raises(ValueError):
         prng.normal_for_seeds([-1], (2,))
+
+
+def _key_words(key):
+    return tuple(int(k) for k in np.asarray(jax.random.key_data(key)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 123456, 2**32 - 1])
+def test_split_and_fold_in_match_jax(seed):
+    key = prng.prng_key(seed)
+    for n in (1, 2, 3, 10):
+        assert prng.split(key, n) == [_key_words(k) for k in jax.random.split(_jax_key(seed), n)]
+    for data in (0, 1, 11, 102, 2**31 + 9, 2**32 - 1):
+        assert prng.fold_in(key, data) == _key_words(jax.random.fold_in(_jax_key(seed), data))
+    # keys chain: a split of a fold_in, as the flow's init derives them
+    chained = jax.random.split(jax.random.fold_in(_jax_key(seed), 100), 7)[4]
+    assert prng.split(prng.fold_in(key, 100), 7)[4] == _key_words(chained)
+
+
+@pytest.mark.parametrize("n", [1, 2, 16, 31, 512, 1500])
+@pytest.mark.parametrize("seed", [0, 7, 123456])
+def test_permutation_matches_jax(seed, n):
+    perm = prng.permutation(prng.prng_key(seed), n)
+    assert perm.dtype == torch.int64
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jax.random.permutation(_jax_key(seed), n)))
+
+
+def test_permutation_refuses_a_second_sort_round():
+    with pytest.raises(NotImplementedError, match="sort rounds"):
+        prng.permutation(prng.prng_key(0), 2**22)

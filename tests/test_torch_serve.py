@@ -30,7 +30,7 @@ from ipoke_tpu_torch.serve import loadtest
 from ipoke_tpu_torch.serve.batcher import BatcherConfig, SampleBatcher
 from ipoke_tpu_torch.serve.server import make_handler, resolve_model
 from test_torch_slice import S, T, _jax_spec
-from torch_port_util import CPU, np_tree, port_second_stage_spec, set_wn_gains
+from torch_port_util import CPU, flatten, np_tree, port_second_stage_spec, set_wn_gains, tiny_config
 
 JAX_TOL = 2e-4      # the slice's f32 tolerance (tests/test_torch_slice.py)
 SAME_TOL = 1e-5     # tests/test_serve.py: alone vs batched, HTTP vs direct
@@ -229,45 +229,20 @@ def test_loadtest_client_against_the_server(server):
 # -- checkpoint serving (-c/-m) ------------------------------------------------
 
 def _config(tmp_path, ckpts):
-    sections = {
-        "first_stage": {"spec": {"z_dim": 16, "ENC_M_channels": [16] * 4, "dec_channels": [16] * 4,
-                                 "n_gru_layers": 2, "min_spatial_size": 8, "motion_bias": True,
-                                 "full_seq": True}},
-        "poke_embedder": {"spec": {"nf_max": 16, "min_spatial_size": 8}},
-        "conditioner": {"use": True, "spec": {"nf_max": 16, "min_spatial_size": 8}},
-    }
-    for k, path in ckpts.items():
-        sections[k]["ckpt"] = path
-    return {
-        "general": {"experiment": "serve_ckpt", "base_dir": str(tmp_path / "logs"), "seed": 0},
-        **sections,
-        "data": {"spatial_size": [CKPT_S, CKPT_S], "max_frames": T},
-        "architecture": {"flow_mid_channels_factor": 2, "kernel_size": [2, 3], "num_steps": [1, 1],
-                         "factor": 16, "activation": "elu", "transform": "affine",
-                         "prior_transform": "affine", "condition_nice": False,
-                         "augmented_input": False, "multistack": False},
-    }
-
-
-def _flatten(tree, prefix=""):
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
+    return tiny_config(tmp_path / "logs", ckpts, spatial=CKPT_S, frames=T)
 
 
 @pytest.mark.parametrize("with_conditioner", [True, False])
 def test_checkpoint_serving(tmp_path, with_conditioner):
     """-c/-m: frozen components from the config's ckpt paths, the flow from
     the run's best checkpoint (newest version dir that holds one), bitwise
-    the bridge of the same tree; a component found nowhere raises."""
+    the bridge of the same tree; a component found nowhere is drawn by the
+    port's init from the config's seed (JAX's own draw:
+    tests/test_torch_init.py)."""
     import yaml
+
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.utils import prng
 
     p = _jax_params(jax_build_spec(_config(tmp_path, {})))
     ckpts = {}
@@ -286,15 +261,14 @@ def test_checkpoint_serving(tmp_path, with_conditioner):
     cfg_path = tmp_path / "second_stage.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
 
-    if not with_conditioner:
-        with pytest.raises(FileNotFoundError, match="conditioner"):
-            resolve_model(str(cfg_path), "m", device="cpu")
-        return
     params, spec = resolve_model(str(cfg_path), "m", device="cpu")
     assert spec == build_spec_from_config(cfg) == port_second_stage_spec(
         jax_build_spec(cfg), mcf_backend="cuda_unit")
-    want = _flatten(bridge_second_stage(np_tree(p), spec, device=CPU))
-    got = _flatten(params)
+    want = bridge_second_stage(np_tree(p), spec, device=CPU)
+    if not with_conditioner:
+        want["conditioner"] = second_stage.init(prng.prng_key(0), spec, device=CPU,
+                                                only=["conditioner"])["conditioner"]
+    want, got = flatten(want), flatten(params)
     assert got.keys() == want.keys()
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k

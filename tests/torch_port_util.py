@@ -57,6 +57,53 @@ def port_second_stage_spec(jspec, **flow_overrides):
     return PortSecondStageSpec(**kw)
 
 
+def tiny_config(base_dir, ckpts=None, seed=0, spatial=64, frames=3):
+    """A config of the tiny second stage (2 flow levels of one step, hidden 32,
+    towers and first stage of width 16, 8x8 latent; 64 is the least spatial
+    size of an 8x8 latent), with frozen components from ``ckpts`` paths."""
+    sections = {
+        "first_stage": {"spec": {"z_dim": 16, "ENC_M_channels": [16, 16, 16, 16],
+                                 "dec_channels": [16, 16, 16, 16], "n_gru_layers": 2,
+                                 "min_spatial_size": 8, "motion_bias": True, "full_seq": True}},
+        "poke_embedder": {"spec": {"nf_max": 16, "min_spatial_size": 8}},
+        "conditioner": {"use": True, "spec": {"nf_max": 16, "min_spatial_size": 8}},
+    }
+    for k, path in (ckpts or {}).items():
+        sections[k]["ckpt"] = path
+    return {
+        "general": {"experiment": "serve_ckpt", "base_dir": str(base_dir), "seed": seed},
+        **sections,
+        "data": {"spatial_size": [spatial, spatial], "max_frames": frames},
+        "architecture": {"flow_mid_channels_factor": 2, "kernel_size": [2, 3], "num_steps": [1, 1],
+                         "factor": 16, "activation": "elu", "transform": "affine",
+                         "prior_transform": "affine", "condition_nice": False,
+                         "augmented_input": False, "multistack": False},
+    }
+
+
+def flatten(tree, prefix=""):
+    """A nested dict/list tree as {'a/0/b': leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def clone_tree(tree):
+    """A copy of a tree of tensors, in its own key order."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone()
+
+
 def t(a):
     """numpy -> float32 CPU tensor."""
     return torch.from_numpy(np.array(a, dtype=np.float32))
