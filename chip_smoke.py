@@ -30,8 +30,28 @@ Phases, each fatal on failure:
              a batcher with flow output gains CROSS_GAIN and f32 decode, one
              served npy video against forward_sample on the z that
              utils/prng draws from its seed, and three requests alone
-             against the same three in one batch.
-  6. train   the training path: experiments/second_stage.train on iper_128
+             against the same three in one batch.  Before it, the host cost
+             of the custom ops per launch against the ctypes launch.
+  6. distill the distillation path on the slice's params as the frozen
+             teacher (seed 0, flow output convs zeroed: the port's
+             synth-stable teacher), B=8: a direct student (hidden 256, depth
+             6) from JAX's init, DISTILL_DIRECT_STEPS steps of optax's adam
+             (K2 200 launches per step, the teacher's reverse; the loss must
+             fall); a flow student of one MaCowStep per level,
+             DISTILL_FLOW_STEPS steps with finite NLL, then
+             reverse(forward(m)) back to m within TRAIN_TOL (60 K2
+             launches); then forward_sample_student with the direct student
+             trained above, timed beside the slice's calls.
+  7. artifact serving artifacts exported on the card (torch.export, K2 as
+             the custom op ipoke::macow_unit_inverse): the flow sampler at
+             ARTIFACT_FLOW_BUCKETS with flow output gains CROSS_GAIN, loaded
+             and held to the live forward_sample on the same z within
+             CUDA_BATCH_TOL (200 K2 launches per call); the direct student of
+             the distill phase with the u8 wire at buckets 1, 2, 4, 8,
+             served over HTTP by the port's server (SERVE_REQUESTS npy_u8
+             requests, 2 processes x 8 connections).  Export seconds per
+             bucket and file sizes are printed.
+  8. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
              data (B=8, 10 frames of 128^2), torch-Adam (lr 1e-3 after 2
              warm-up steps, weight decay 1e-5), one warm-up step and 5 timed
@@ -41,8 +61,9 @@ Phases, each fatal on failure:
              temporary directory) reloads to the trained params bitwise, and
              reverse(forward(x)) on the trained flow returns the motion latent
              within TRAIN_TOL with 200 K2 launches.
-  7. report  a JSON line of the train phase, a JSON line of kernels, the
-             card's line, and last {"ok": true, "device": {...}}.
+  9. report  a JSON line of the train phase, one of the distill and
+             artifact phases, a JSON line of kernels, the card's line, and
+             last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
@@ -80,14 +101,16 @@ from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
-from ipoke_tpu_torch.serve import loadtest  # noqa: E402
+from ipoke_tpu_torch.serve import artifact, loadtest  # noqa: E402
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
 from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
+from ipoke_tpu_torch.train import distill  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
-    k2_clusters, k2_plan, k2_work, mcf_inputs, sweep_k1, sweep_k2, time_ms, unit_inputs)
+    k2_clusters, k2_plan, k2_work, mcf_inputs, op_overhead, sweep_k1, sweep_k2, time_ms,
+    unit_inputs)
 
 KERNEL_TOL = 2e-4          # tests/test_pallas_mcf.py, tests/test_pallas_unit.py
 BATCH, LATENT, HC = 8, 8, 128
@@ -102,6 +125,13 @@ SERVE_REQUESTS, SERVE_PROCS, SERVE_CONNS = 48, 2, 8
 TRAIN_STEPS = 5            # timed train steps, after one warm-up step
 # reverse(forward(x)) on the trained flow against x, 50 MaCowSteps deep in f32
 TRAIN_TOL = 1e-3
+DISTILL_DIRECT_STEPS, DISTILL_FLOW_STEPS = 10, 3
+DISTILL_LR = 1e-4          # configs/distill.yaml's distill.lr
+STUDENT_CALLS = 3          # timed forward_sample_student calls, after one warm-up
+# bucket 8 only: exporting the flagship flow graph is the slowest step of the
+# run (PERF.md)
+ARTIFACT_FLOW_BUCKETS = (8,)
+ARTIFACT_STUDENT_BUCKETS = (1, 2, 4, 8)
 
 
 def log(msg):
@@ -388,6 +418,232 @@ def phase_serve_check(device, spec, params, seeds=(11, 2**32 - 1, 2**40 + 3)):
         _stop_server(httpd, thread, batcher)
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counts():
+    return k1.mcf_inverse.launches, k2.macow_unit_inverse.launches
+
+
+def _zero_counts():
+    k1.mcf_inverse.launches = 0
+    k2.macow_unit_inverse.launches = 0
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def phase_distill(device, card, spec, params, slice_s, b=BATCH, direct_steps=DISTILL_DIRECT_STEPS,
+                  flow_steps=DISTILL_FLOW_STEPS, student_calls=STUDENT_CALLS):
+    """The distillation path on ``params`` as the frozen teacher, one fixed
+    cond of ``b`` examples, step i's z from ``prng_key(100 + i)``: a direct
+    student (256, 6) from JAX's init at key 0, then a flow student of one
+    MaCowStep per level from key 1, then forward_sample_student of the
+    trained direct student.  The launch counters are zeroed just before each
+    part and read just after it.  Returns (numbers, (the trained direct
+    student's params, its spec))."""
+    units = 4 * sum(spec.flow.num_steps)
+    (batch, _), = make_requests(device, 1, b, spec, seed=4000)
+    cond = second_stage.embed_cond(params, spec, batch["images"][:, 0], batch["poke"])
+    zshape = transformer.reverse_input_shape(spec.flow, b, spec.latent_size, spec.flow_in_channels)
+    out = {}
+
+    def train(student, key, steps, lr):
+        init_state, step = distill.make_distill_step(spec, student, train_ss.adam(lr))
+        t0 = time.perf_counter()
+        state = init_state(prng.prng_key(key), device)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        hist = []
+        _zero_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(steps):
+            z = prng.normal(prng.prng_key(100 + i), zshape, device)
+            _sync(device)
+            t0 = time.perf_counter()
+            state, logs = step(state, params, z, cond)
+            logs = {k: float(v) for k, v in logs.items()}   # a host read: the step has finished
+            hist.append(dict(logs, ms=(time.perf_counter() - t0) * 1e3))
+        n = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0
+        return state, hist, n, init_s, peak
+
+    # direct student
+    ds = distill.DirectStudentSpec(hidden=256, depth=6)
+    state, hist, n, init_s, peak = train(ds, 0, direct_steps, DISTILL_LR)
+    for i, h in enumerate(hist):
+        log(f"distill [{card}]: direct step {i}: loss {h['loss']:.6g}, teacher_finite_frac "
+            f"{h['teacher_finite_frac']:.3f}, {h['ms']:.1f} ms")
+    losses = [h["loss"] for h in hist]
+    step_ms = _median([h["ms"] for h in hist[1:]] or [hist[0]["ms"]])
+    log(f"distill [{card}]: direct student (256, 6), B={b}, lr {DISTILL_LR}: init {init_s:.2f} s; "
+        f"step first {hist[0]['ms']:.1f} ms, median of the rest {step_ms:.1f} ms; loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; K1/K2 launches {n[0]}/{n[1]} ({n[1] / direct_steps:g} "
+        f"K2 per step, want {units}); peak {peak:.2f} GiB")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and n == (0, units * direct_steps)):
+        raise SystemExit(f"distill: the direct student failed (losses {losses}, K1/K2 {n})")
+    out["direct"] = {"init_s": init_s, "step_ms": [h["ms"] for h in hist],
+                     "step_ms_median": step_ms, "loss": losses, "peak_gib": peak,
+                     "teacher_finite_frac": [h["teacher_finite_frac"] for h in hist],
+                     "launches_per_step": {"mcf_inverse": n[0] / direct_steps,
+                                           "macow_unit_inverse": n[1] / direct_steps}}
+    sp = state["params"]
+    del state
+
+    # flow student: one MaCowStep per level
+    s_spec = distill.flow_student_spec(spec.flow, (1,) * len(spec.flow.num_steps))
+    fstate, fhist, n, init_s, peak = train(s_spec, 1, flow_steps, 1e-4)
+    nll = [h["loss"] for h in fhist]
+    s_units = 4 * sum(s_spec.num_steps)
+    with torch.no_grad():
+        m = distill.teacher_motion(params, spec, prng.normal(prng.prng_key(200), zshape, device), cond)
+        g, _ = transformer.forward(fstate["params"], s_spec, m, cond)
+        _zero_counts()
+        back = transformer.reverse(fstate["params"], s_spec, g, cond)
+        _sync(device)
+        n_rt = _counts()
+    err = (back - m).abs().max().item()
+    log(f"distill [{card}]: flow student {s_spec.num_steps}: init {init_s:.2f} s; steps "
+        f"{', '.join(f'{h['ms']:.1f}' for h in fhist)} ms; NLL {', '.join(f'{x:.6g}' for x in nll)}; "
+        f"K1/K2 launches in the steps {n[0]}/{n[1]}; peak {peak:.2f} GiB; max |reverse(forward(m)) - m| "
+        f"{err:.3g} (tolerance {TRAIN_TOL}) with K1/K2 launches {n_rt[0]}/{n_rt[1]} (want 0/{s_units})")
+    if not (all(np.isfinite(nll)) and n == (0, units * flow_steps) and err <= TRAIN_TOL
+            and n_rt == (0, s_units)):
+        raise SystemExit(f"distill: the flow student failed (NLL {nll}, K1/K2 {n}, round trip "
+                         f"{err} with {n_rt})")
+    out["flow"] = {"init_s": init_s, "step_ms": [h["ms"] for h in fhist], "nll": nll,
+                   "peak_gib": peak, "roundtrip_max_abs_err": err,
+                   "roundtrip_launches": {"mcf_inverse": n_rt[0], "macow_unit_inverse": n_rt[1]}}
+    del fstate, m, g, back
+
+    # the trained direct student's sampler
+    (batch, z), = make_requests(device, 1, b, spec, seed=5000)
+    fs = spec.first_stage
+    want = (1, b, fs.max_frames - 1, fs.spatial_size, fs.spatial_size, 3)
+    lat = []
+    _zero_counts()
+    for i in range(1 + student_calls):
+        _sync(device)
+        t0 = time.perf_counter()
+        vid = distill.forward_sample_student(params, sp, ds, spec, batch, z=z)
+        _sync(device)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    n = _counts()
+    finite = bool(torch.isfinite(vid).all())
+    steady = lat[1:]
+    flow_ms = [x * 1e3 for x in slice_s]
+    log(f"distill [{card}]: forward_sample_student ({ds.hidden}, {ds.depth}) trained above, "
+        f"B={b}: first {lat[0]:.1f} ms, then {', '.join(f'{x:.1f}' for x in steady)} ms, "
+        f"{b * 1e3 / (sum(steady) / len(steady)):.2f} videos/s; the flow's forward_sample "
+        f"(slice phase) {', '.join(f'{x:.1f}' for x in flow_ms)} ms, "
+        f"{b * 1e3 / (sum(flow_ms) / len(flow_ms)):.2f} videos/s; shape {tuple(vid.shape)}, finite "
+        f"{finite}; K1/K2 launches {n[0]}/{n[1]}")
+    if tuple(vid.shape) != want or not finite or n != (0, 0):
+        raise SystemExit(f"distill: forward_sample_student failed ({tuple(vid.shape)}, {finite}, {n})")
+    out["student_sample_ms"] = lat
+    return out, (sp, ds)
+
+
+def phase_artifact(device, card, spec, params, student, tmp, flow_buckets=ARTIFACT_FLOW_BUCKETS,
+                   student_buckets=ARTIFACT_STUDENT_BUCKETS, b=BATCH,
+                   n_requests=SERVE_REQUESTS, procs=SERVE_PROCS, conns=SERVE_CONNS):
+    """Serving artifacts exported on ``device`` into ``tmp``: the flow
+    sampler (flow output gains CROSS_GAIN) at ``flow_buckets``, loaded and
+    run at bucket ``b`` against the live forward_sample; then the direct
+    student ``student`` = (params, spec) with the u8 wire at
+    ``student_buckets``, served over HTTP.  The launch counters are zeroed just before each run
+    and read just after it."""
+    units = 4 * sum(spec.flow.num_steps)
+    gparams = dict(params, flow=synth.set_flow_output_gains(params["flow"], CROSS_GAIN))
+
+    def export(name, **kw):
+        t0 = time.perf_counter()
+        artifact.export_sampler(gparams if name == "flow" else params, spec, tmp / name, **kw)
+        total = time.perf_counter() - t0
+        m = json.loads((tmp / name / "manifest.json").read_text())
+        sizes = {f.name: f.stat().st_size for f in sorted((tmp / name).iterdir())}
+        t0 = time.perf_counter()
+        art = artifact.load_artifact(tmp / name, device)
+        load_s = time.perf_counter() - t0
+        log(f"artifact [{card}]: {name} ({m['sampler']}, wire {m['wire']}) exported in "
+            f"{total:.1f} s: per bucket {', '.join(f'{k}: {v:.1f} s' for k, v in m['export_s'].items())}; "
+            f"files {', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())}; loaded in "
+            f"{load_s:.1f} s")
+        return art, {"export_s": m["export_s"], "export_total_s": total, "load_s": load_s,
+                     "bytes": sizes}
+
+    out = {}
+    art, out["flow"] = export("flow", buckets=flow_buckets)
+    nodes = sum("ipoke.macow_unit_inverse" in str(n.target) for n in art.programs[b].graph.nodes)
+    (batch, _), = make_requests(device, 1, b, spec, seed=6000)
+    x0, poke = batch["images"][:, 0], batch["poke"]
+    z = art.draw_z(range(b))
+    art.run(art.params, x0, poke, z)   # first call
+    ms, n = [], []
+    for _ in range(2):
+        _zero_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        got = art.run(art.params, x0, poke, z)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        n.append(_counts())
+    live_ms = []
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        live = second_stage.forward_sample(gparams, spec, batch, length=art.length,
+                                           add_first_frame=True, z=z)[0]
+        _sync(device)
+        live_ms.append((time.perf_counter() - t0) * 1e3)
+    err = (got - live).abs().max().item()
+    log(f"artifact [{card}]: flow bucket {b}: {nodes} ipoke::macow_unit_inverse nodes; calls "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms (live forward_sample {', '.join(f'{x:.1f}' for x in live_ms)} "
+        f"ms); K1/K2 launches per call {n}; max |artifact - live| {err:.3g} (tolerance "
+        f"{CUDA_BATCH_TOL}); video range [{live.min().item():.3f}, {live.max().item():.3f}]")
+    if nodes != units or any(x != (0, units) for x in n) or not err <= CUDA_BATCH_TOL \
+            or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"artifact: the flow artifact failed ({nodes} nodes, launches {n}, err {err})")
+    out["flow"].update(call_ms=ms, live_ms=live_ms, max_abs_err=err, nodes=nodes,
+                       launches_per_call={"mcf_inverse": n[0][0], "macow_unit_inverse": n[0][1]})
+    del art, got, live, gparams
+
+    art, out["student"] = export("student", buckets=student_buckets, student=student, wire_u8=True)
+    batcher = SampleBatcher.from_artifact(art, BatcherConfig(max_batch=b, max_delay_ms=30.0))
+    httpd, thread = _start_server(batcher)
+    port = httpd.server_address[1]
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        batcher.warmup()
+        warm_s = time.perf_counter() - t0
+        res = loadtest.run(port, requests=n_requests, procs=procs, conns=conns,
+                           size=spec.first_stage.spatial_size, fmt="npy_u8", timeout=600)
+        stats = json.loads(_http(port, "GET", "/stats"))
+        n = _counts()
+    finally:
+        _stop_server(httpd, thread, batcher)
+    log(f"artifact [{card}]: student artifact served: {res['requests_ok']}/{n_requests} requests ok, "
+        f"{res['errors']} errors ({procs} processes x {conns} connections, npy_u8); "
+        f"{res['videos_per_s_served']:.3f} videos/s served over {res['wall_s']:.3f} s; p50 "
+        f"{res['p50_s'] * 1e3:.1f} ms, p95 {res['p95_s'] * 1e3:.1f} ms; batch sizes "
+        f"{stats['batch_size_histogram']}, mean batch exec {stats['mean_batch_exec_ms']:.1f} ms, "
+        f"mean wait {stats['mean_wait_ms']:.1f} ms; warm-up of buckets {batcher.buckets} "
+        f"{warm_s:.2f} s; K1/K2 launches {n[0]}/{n[1]}")
+    if (res["requests_ok"] != n_requests or res["errors"] or stats["requests"] != n_requests
+            or n != (0, 0)):
+        raise SystemExit(f"artifact: serving the student failed ({res}, stats {stats}, K1/K2 {n})")
+    out["student"].update(served=res, stats=stats, warm_s=warm_s,
+                          launches={"mcf_inverse": n[0], "macow_unit_inverse": n[1]})
+    return out
+
+
 def train_config(entry, b=BATCH, steps=TRAIN_STEPS):
     """An in-memory config that trains the registry model ``entry`` at full
     width and depth on the synthetic dataset: torch-Adam, lr 1e-3 after a
@@ -568,8 +824,16 @@ def main():
         f"{res['latency_s'][0] * 1e3:.1f} ms, then {', '.join(f'{x * 1e3:.1f}' for x in steady)} ms; "
         f"{BATCH / mean_s:.2f} videos/s; peak memory {peak / 2**30:.2f} GiB")
     phase_cross_check(device, spec, params)
+    overhead = op_overhead(device, log, card)
     serve = phase_serve(card, spec, params, steady)
     phase_serve_check(device, spec, params)
+    t0 = time.perf_counter()
+    dist, student = phase_distill(device, card, spec, params, steady)
+    log(f"distill: the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as tmp:
+        art = phase_artifact(device, card, spec, params, student, Path(tmp))
+    log(f"artifact: the phase took {time.perf_counter() - t0:.1f} s")
     del params
     train = phase_train(device, card, entry)
 
@@ -577,6 +841,10 @@ def main():
     rows = [
         dict(name=name, route="cuda", source=src.format(source), replaces=replaces,
              launches=res["launches"][name], serve_launches=serve["launches"][name],
+             distill_direct_step_launches=dist["direct"]["launches_per_step"][name],
+             distill_flow_roundtrip_launches=dist["flow"]["roundtrip_launches"][name],
+             artifact_flow_call_launches=art["flow"]["launches_per_call"][name],
+             artifact_student_serve_launches=art["student"]["launches"][name],
              train_step_launches=train["launches"][name],
              train_roundtrip_launches=train["roundtrip_launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -591,6 +859,7 @@ def main():
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,7 +15,9 @@
   wrappers and the spectral-norm vectors ``u``.
 
 A component missing from the tree is missing from the result, so a training
-checkpoint's trainable subtree bridges too.  ``unbridge_second_stage`` is
+checkpoint's trainable subtree bridges too.  A flow distillation student is
+a flow tree (``bridge_flow``); a direct student has its own pair
+(``bridge_direct`` / ``unbridge_direct``).  ``unbridge_second_stage`` is
 the inverse: the port's params (or any tree of that layout, an optimizer
 moment with None at the integer leaves) back to JAX's layouts as numpy, steps
 stacked and permutations int32, for ``ckpt/io.save``.
@@ -67,6 +69,13 @@ def _convert(tree, device, transposed=False):
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
+def _tree_of(tree):
+    """``tree`` itself, or the tree of the npz at the path ``tree``."""
+    if isinstance(tree, (str, bytes)) or hasattr(tree, "__fspath__"):
+        tree, _ = load(tree)
+    return tree
+
+
 def bridge_flow(tree, device=None):
     """The JAX multiscale flow tree ({'levels': [...]}) -> the port's."""
     device = resolve_device(device)
@@ -110,15 +119,26 @@ def _adapters(spec):
             if w is not None]
 
 
+def grown_adapters(spec):
+    """The names of ``spec``'s size adapters that grow: transpose convs."""
+    return [name for name, grows in _adapters(spec) if grows]
+
+
 def bridge_second_stage(tree, spec, device=None):
     """The JAX second-stage tree (or the path of its npz) -> the port's params.
 
     ``spec`` is the port's SecondStageSpec; it says which size adapters grow
     (transpose conv) and which shrink.
     """
+    return bridge_components(tree, grown_adapters(spec), device)
+
+
+def bridge_components(tree, grown=(), device=None):
+    """``bridge_second_stage`` with the growing size adapters named in
+    ``grown`` instead of read from a spec (a serving artifact's manifest
+    names them)."""
     device = resolve_device(device)
-    if isinstance(tree, (str, bytes)) or hasattr(tree, "__fspath__"):
-        tree, _ = load(tree)
+    tree = _tree_of(tree)
     out = {}
     if "flow" in tree:
         out["flow"] = bridge_flow(tree["flow"], device)
@@ -127,9 +147,9 @@ def bridge_second_stage(tree, spec, device=None):
     for name in ("poke_embedder", "conditioner"):
         if name in tree:
             out[name] = {"encoder": _convert(tree[name]["encoder"], device)}
-    for name, grows in _adapters(spec):
+    for name in ("conv_adapt_poke_emb", "conv_adapt_cond"):
         if name in tree:
-            out[name] = _convert(tree[name], device, transposed=grows)
+            out[name] = _convert(tree[name], device, transposed=name in grown)
     return out
 
 
@@ -193,3 +213,19 @@ def unbridge_second_stage(params, spec):
         if name in params:
             out[name] = _export(params[name], transposed=grows)
     return out
+
+
+# ---------------------------------------------------------------------------
+# distillation students
+# ---------------------------------------------------------------------------
+
+def bridge_direct(tree, device=None):
+    """A direct student's JAX tree (or the path of its npz, e.g.
+    ``bench_distill --save``) -> the port's params: conv kernels HWIO ->
+    OIHW, the residual blocks a list."""
+    return _convert(_tree_of(tree), resolve_device(device))
+
+
+def unbridge_direct(params):
+    """The inverse of ``bridge_direct``, as numpy for ``ckpt/io.save``."""
+    return _export(params)

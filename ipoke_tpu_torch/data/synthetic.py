@@ -197,3 +197,11 @@ def train_batches(dataset, batch_size: int, seed: int = 0):
         for start in range(0, n - batch_size + 1, batch_size):
             samples = [dataset[int(i)] for i in order[start:start + batch_size]]
             yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def eval_batches(dataset, batch_size: int):
+    """The batches of a validation or test split, as JAX's loader gives them
+    there: in index order, the last partial batch dropped."""
+    for start in range(0, len(dataset) - batch_size + 1, batch_size):
+        samples = [dataset[i] for i in range(start, start + batch_size)]
+        yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}

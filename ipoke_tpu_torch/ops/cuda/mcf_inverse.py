@@ -21,9 +21,13 @@ their partial (mu, logs) through distributed shared memory, once per line,
 summed in rank order.  Every order runs in its native orientation on z, h
 and w_shift as stored.  ``cluster_plan`` picks G.
 
-``mcf_inverse`` launches the kernel on CUDA tensors and takes the plain
-version ``mcf_inverse_plain`` on CPU tensors only; ``mcf_inverse.launches``
-counts kernel launches.
+``mcf_inverse`` calls the custom op ``ipoke::mcf_inverse``
+(``torch.library.Library``): its CUDA implementation launches the kernel
+(``launch``), its CPU implementation is the plain version
+``mcf_inverse_plain``, taken for CPU tensors only, and its fake
+implementation gives ``torch.export`` the output's shape, so an exported
+graph holds one ``ipoke::mcf_inverse`` node per MCF.  No autograd formula is registered: the JAX kernel has no backward
+either.  ``mcf_inverse.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -150,12 +154,10 @@ def mcf_inverse_plain(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu"):
     return undo(buf[:, :, kh:, cw:cw + width].permute(0, 2, 3, 1)).contiguous()
 
 
-def mcf_inverse(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=None):
-    """K1 on CUDA tensors, read as stored; its plain version on CPU tensors.
-    ``cluster`` fixes G (the tests and the sweep); by default ``cluster_plan``
-    picks it."""
-    if z.device.type == "cpu":
-        return mcf_inverse_plain(z, h, w_shift, w1, b1, order, alpha, act)
+def launch(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=None):
+    """K1 on CUDA tensors, read as stored, through its ctypes binding: the
+    checks, one launch, ``mcf_inverse.launches`` + 1.  ``cluster`` fixes G
+    (the tests and the sweep); by default ``cluster_plan`` picks it."""
     if z.device.type != "cuda":
         raise ValueError(f"mcf_inverse: no kernel for device {z.device}")
     if act not in _build.ACT_CODES:
@@ -191,6 +193,38 @@ def mcf_inverse(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=
     _build.check_launch("mcf_inverse", err)
     mcf_inverse.launches += 1
     return out
+
+
+# ``torch.library.Library`` rather than ``custom_op``: see
+# ``mcf_unit_inverse._LIB``.  Both ops share the namespace, hence FRAGMENT.
+_LIB = torch.library.Library("ipoke", "FRAGMENT")
+_LIB.define("mcf_inverse(Tensor z, Tensor? h, Tensor[] weights, str order, float alpha, "
+            "str act, int? cluster) -> Tensor")
+
+
+def _cuda_impl(z, h, weights, order, alpha, act, cluster):
+    """weights: [w_shift, w1, b1]."""
+    return launch(z, h, *weights, order, alpha, act, cluster)
+
+
+def _cpu_impl(z, h, weights, order, alpha, act, cluster):
+    return mcf_inverse_plain(z, h, *weights, order, alpha, act)
+
+
+_LIB.impl("mcf_inverse", _cuda_impl, "CUDA")
+_LIB.impl("mcf_inverse", _cpu_impl, "CPU")
+
+
+@torch.library.register_fake("ipoke::mcf_inverse", lib=_LIB)
+def _(z, h, weights, order, alpha, act, cluster):
+    return torch.empty_like(z)
+
+
+def mcf_inverse(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=None):
+    """The op ``ipoke::mcf_inverse``: K1 on CUDA tensors, its plain version on
+    CPU tensors."""
+    return torch.ops.ipoke.mcf_inverse(z, h, [w_shift, w1, b1], order, float(alpha), act,
+                                       cluster)
 
 
 mcf_inverse.launches = 0

@@ -20,8 +20,13 @@ shared memory (staged one MCF ahead by ``cp.async``), and the ranks exchange
 their partial (mu, logs) through distributed shared memory, once per line,
 summed in rank order.  ``cluster_plan`` picks G.
 
-``macow_unit_inverse`` launches the kernel on CUDA tensors and takes the
-plain version ``macow_unit_inverse_plain`` on CPU tensors only;
+``macow_unit_inverse`` calls the custom op ``ipoke::macow_unit_inverse``
+(``torch.library.Library``): its CUDA implementation launches the kernel
+(``launch``), its CPU implementation is the plain version
+``macow_unit_inverse_plain``, taken for CPU tensors only, and its fake
+implementation gives ``torch.export`` the output's shape, so an exported
+graph holds one ``ipoke::macow_unit_inverse`` node per MaCowUnit.  No
+autograd formula is registered: the JAX kernel has no backward either.
 ``macow_unit_inverse.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -90,11 +95,10 @@ def macow_unit_inverse_plain(y, h, weights, an1, an2, alpha=1.0, act="elu"):
     return mcf(out, "A")
 
 
-def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
-    """K2 on CUDA tensors, its plain version on CPU tensors.  ``cluster``
-    fixes G (the tests and the sweep); by default ``cluster_plan`` picks it."""
-    if y.device.type == "cpu":
-        return macow_unit_inverse_plain(y, h, weights, an1, an2, alpha, act)
+def launch(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
+    """K2 on CUDA tensors through its ctypes binding: the checks, one launch,
+    ``macow_unit_inverse.launches`` + 1.  ``cluster`` fixes G (the tests and
+    the sweep); by default ``cluster_plan`` picks it."""
     if y.device.type != "cuda":
         raise ValueError(f"macow_unit_inverse: no kernel for device {y.device}")
     if act not in _build.ACT_CODES:
@@ -135,6 +139,46 @@ def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=No
     _build.check_launch("macow_unit_inverse", err)
     macow_unit_inverse.launches += 1
     return out
+
+
+# Defined and implemented through ``torch.library.Library``, not
+# ``torch.library.custom_op``: the latter adds a Python autograd kernel that
+# re-enters the dispatcher on every call, host time paid on each of the 200
+# launches of a sampling call (PERF.md §6).
+_LIB = torch.library.Library("ipoke", "FRAGMENT")
+_LIB.define("macow_unit_inverse(Tensor y, Tensor? h, Tensor[] weights, Tensor an1, Tensor an2, "
+            "float alpha, str act, int? cluster) -> Tensor")
+
+
+def _unflat(weights):
+    """weights: (w_shift, w1, b1) of conv1..conv4, flat: 12 tensors."""
+    return [tuple(weights[i:i + 3]) for i in range(0, 12, 3)]
+
+
+def _cuda_impl(y, h, weights, an1, an2, alpha, act, cluster):
+    return launch(y, h, _unflat(weights), an1, an2, alpha, act, cluster)
+
+
+def _cpu_impl(y, h, weights, an1, an2, alpha, act, cluster):
+    return macow_unit_inverse_plain(y, h, _unflat(weights), an1, an2, alpha, act)
+
+
+_LIB.impl("macow_unit_inverse", _cuda_impl, "CUDA")
+_LIB.impl("macow_unit_inverse", _cpu_impl, "CPU")
+
+
+@torch.library.register_fake("ipoke::macow_unit_inverse", lib=_LIB)
+def _(y, h, weights, an1, an2, alpha, act, cluster):
+    return torch.empty_like(y)
+
+
+def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
+    """The op ``ipoke::macow_unit_inverse``: K2 on CUDA tensors, its plain
+    version on CPU tensors.  weights: 4 x (w_shift, w1, b1)."""
+    if len(weights) != 4:
+        raise ValueError(f"macow_unit_inverse: {len(weights)} weight sets, want 4 (conv1..conv4)")
+    return torch.ops.ipoke.macow_unit_inverse(y, h, [t for w in weights for t in w], an1, an2,
+                                              float(alpha), act, cluster)
 
 
 macow_unit_inverse.launches = 0

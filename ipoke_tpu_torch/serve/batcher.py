@@ -1,5 +1,6 @@
 """Dynamic batcher: the core of the serving path (counterpart of
-``ipoke_tpu/serve/batcher.py``, its live-model path).
+``ipoke_tpu/serve/batcher.py``): the live model, or a loaded serving artifact
+(``from_artifact``, ``serve/artifact.py``).
 
 * **A ladder of batch buckets.**  Requests are padded up to 1, 2, 4, ...
   ``max_batch`` examples, as in the JAX package, where each bucket is one
@@ -27,7 +28,7 @@ import queue
 import sys
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -104,7 +105,7 @@ class SampleBatcher:
     use ``submit_async`` to get a handle instead.
     """
 
-    def __init__(self, params, spec, cfg: BatcherConfig = BatcherConfig()):
+    def __init__(self, params, spec, cfg: BatcherConfig = BatcherConfig(), _artifact=None):
         self.params = params
         self.spec = spec
         self.cfg = cfg
@@ -112,15 +113,46 @@ class SampleBatcher:
         self.stats = Stats()
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
-        self._buckets = self._bucket_ladder(cfg.max_batch)
-        self._length = cfg.length or (spec.first_stage.max_frames - 1)
-        s = spec.first_stage.spatial_size
-        self._x0_shape = (s, s, 3)
-        self._poke_shape = (s, s, 2)
-        self._z_shape = tuple(transformer.reverse_input_shape(
-            spec.flow, 1, spec.latent_size, spec.flow_in_channels)[1:])
+        self._artifact = _artifact
+        if _artifact is not None:
+            if cfg.wire_u8 and _artifact.manifest.get("wire", "f32") != "u8":
+                raise ValueError(
+                    "wire_u8 needs an artifact exported with --wire-u8 (its output "
+                    "dtype is fixed at export) or the live-model path")
+            # only the artifact's exported buckets exist
+            self._buckets = [b for b in _artifact.buckets if b <= cfg.max_batch]
+            if not self._buckets:
+                raise ValueError(f"no artifact bucket <= max_batch={cfg.max_batch} "
+                                 f"(exported: {_artifact.buckets})")
+            if cfg.max_batch > self._buckets[-1]:
+                # never gather more requests than the largest runnable bucket
+                self.cfg = cfg = replace(cfg, max_batch=self._buckets[-1])
+            if cfg.length is not None and cfg.length != _artifact.length:
+                raise ValueError(
+                    f"length={cfg.length} requested but the artifact was exported with "
+                    f"length={_artifact.length}; re-export with --length to change it")
+            self._length = _artifact.length
+            self._x0_shape = _artifact.x0_shape
+            self._poke_shape = _artifact.poke_shape
+            self._z_shape = _artifact.z_shape
+        else:
+            self._buckets = self._bucket_ladder(cfg.max_batch)
+            self._length = cfg.length or (spec.first_stage.max_frames - 1)
+            s = spec.first_stage.spatial_size
+            self._x0_shape = (s, s, 3)
+            self._poke_shape = (s, s, 2)
+            self._z_shape = tuple(transformer.reverse_input_shape(
+                spec.flow, 1, spec.latent_size, spec.flow_in_channels)[1:])
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
+
+    @classmethod
+    def from_artifact(cls, artifact, cfg: BatcherConfig = None):
+        """Batcher over a loaded serving artifact (``serve/artifact.py``'s
+        ``LoadedSampler``): no model code runs, the params come from the
+        artifact, the buckets are its exported ones up to ``max_batch``."""
+        cfg = cfg or BatcherConfig(max_batch=max(artifact.buckets))
+        return cls(artifact.params, None, cfg, _artifact=artifact)
 
     # -- public API --------------------------------------------------------
 
@@ -187,9 +219,12 @@ class SampleBatcher:
         batch = {"images": torch.from_numpy(x0).to(dev)[:, None],
                  "poke": torch.from_numpy(poke).to(dev)}
         z = prng.normal_for_seeds(seeds, self._z_shape, dev)
-        v = second_stage.forward_sample(self.params, self.spec, batch, length=self._length,
-                                        add_first_frame=True, z=z)[0]
-        if self.cfg.wire_u8:
+        if self._artifact is not None:
+            v = self._artifact.run(self.params, batch["images"][:, 0], batch["poke"], z)
+        else:
+            v = second_stage.forward_sample(self.params, self.spec, batch, length=self._length,
+                                            add_first_frame=True, z=z)[0]
+        if self.cfg.wire_u8 and v.dtype != torch.uint8:
             # float -> uint8 truncates, as JAX's astype does
             v = ((v + 1.0) * 127.5).clamp_(0.0, 255.0).to(torch.uint8)
         return v.cpu().numpy()

@@ -4,6 +4,7 @@
     python -m ipoke_tpu_torch.serve.server --synth-model iper_128 [--port 8700]
         [--max-batch 8] [--max-delay-ms 30] [--wire-u8] [--device cpu]
     python -m ipoke_tpu_torch.serve.server -c <cfg> -m <name> [...]
+    python -m ipoke_tpu_torch.serve.server --artifact DIR [...]
 
 Endpoints (JSON unless noted):
   GET  /healthz        -> {"ok": true} once warmed
@@ -175,6 +176,9 @@ def main(argv=None):
                     help="serve a registry architecture (e.g. iper_128) on "
                          "synthesised params, no checkpoint needed; for "
                          "load testing the serving path itself")
+    ap.add_argument("--artifact", default=None, metavar="DIR",
+                    help="serve an exported artifact (serve/artifact.py): no model "
+                         "code runs; it must have been exported for this device type")
     ap.add_argument("--port", type=int, default=8700)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-delay-ms", type=float, default=30.0)
@@ -186,7 +190,8 @@ def main(argv=None):
                     help="quantise videos to uint8 on the device ([-1,1] -> "
                          "0..255, the mp4 writers' quantisation): a quarter "
                          "of the device-to-host bytes. npy(f32)/json "
-                         "responses are dequantised from the u8 wire")
+                         "responses are dequantised from the u8 wire; with "
+                         "--artifact, it needs one exported with --wire-u8")
     args = ap.parse_args(argv)
 
     from ipoke_tpu_torch import resolve_device
@@ -196,10 +201,15 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:   # no CUDA device and no --device
         raise SystemExit(f"{e}; on the command line: --device cpu") from None
-    params, spec = resolve_model(args.config, args.model, args.synth_model, device)
     cfg = BatcherConfig(max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
                         wire_u8=args.wire_u8)
-    batcher = SampleBatcher(params, spec, cfg)
+    if args.artifact:
+        from ipoke_tpu_torch.serve.artifact import load_artifact
+
+        batcher = SampleBatcher.from_artifact(load_artifact(args.artifact, device), cfg)
+    else:
+        params, spec = resolve_model(args.config, args.model, args.synth_model, device)
+        batcher = SampleBatcher(params, spec, cfg)
     if not args.no_warmup:
         print("ipoke-tpu-torch serve: warming batch buckets...", flush=True)
         batcher.warmup()

@@ -8,7 +8,7 @@ shuffle permutations) get no gradient and no update.
 
 The optimizers are optax's, written out on the float leaves with
 ``torch._foreach_*`` ops: ``torch_adam`` (torch.optim.Adam's coupled L2, its
-amsgrad), ``optax.adamw``, ``optax.adabelief`` and
+amsgrad), ``optax.adam`` (``adam``), ``optax.adamw``, ``optax.adabelief`` and
 ``optax.clip_by_global_norm``, each in optax's own formulas (eps, eps_root),
 with optax's step count: the schedule reads the count before the update, so
 the first step runs at lr(0).  The gradients come from autograd;
@@ -238,6 +238,12 @@ def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False):
     steps = [_DecayedWeights(weight_decay)] if weight_decay else []
     steps.append(_ScaleByTorchAmsgrad() if amsgrad else _ScaleByAdam())
     return steps + [_ScaleBySchedule(schedule)]
+
+
+def adam(lr: float) -> Optimizer:
+    """optax.adam(lr): scale_by_adam, then a constant scale of -lr; no decay
+    (the distillation experiment's optimizer)."""
+    return Optimizer([_ScaleByAdam(), _ScaleBySchedule(lambda count: lr)])
 
 
 def make_optimizer(lr: float, weight_decay: float = 1e-5, warmup_steps: int = 500,

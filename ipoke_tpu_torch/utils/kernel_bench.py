@@ -10,12 +10,15 @@ launch: the kernel's own device time (``torch.profiler``), the time per
 launch of a loop of launches by CUDA events (the wrapper's host cost shows
 there when it exceeds the kernel's), and the bound; one JSON line at the
 end.  ``chip_smoke.py`` runs the same sweeps.  Every number is the card's
-own, printed beside the card's name and power limit.
+own, printed beside the card's name and power limit.  ``op_overhead`` times
+the host cost of calling the kernels as ``torch.library`` custom ops against
+their ctypes launch (``chip_smoke.py`` runs it).
 """
 from __future__ import annotations
 
 import json
 import subprocess
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -210,12 +213,48 @@ def sweep_k2(device, log, card, levels=SWEEP_LEVELS, b=8, s=8, hc=128, iters=100
     return rows
 
 
+def enqueue_us(fn, iters, warmup=3):
+    """Host microseconds per call of ``fn`` over ``iters`` calls issued back
+    to back (the launches queue on the device, which finishes after)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
+def op_overhead(device, log, card, iters=200, b=8, s=8, c=32, hc=128):
+    """The host cost of calling the kernels as ``torch.library`` custom ops:
+    host microseconds per launch to enqueue K1 and K2 through
+    ``torch.ops.ipoke.*`` and through their ctypes launch, ``iters`` calls
+    each, at the level-0 shape (B=``b``, C=``c``, hc=``hc``).  Returns a dict
+    of these numbers."""
+    gen = torch.Generator().manual_seed(7)
+    z, h, w, w1, b1 = mcf_inputs(gen, c, hc, b, s, "A", device)
+    weights, an, y, hu = unit_inputs(gen, c, hc, b, s, device)
+    out = {
+        "k1_op_us": enqueue_us(lambda: k1.mcf_inverse(z, h, w, w1, b1), iters),
+        "k1_ctypes_us": enqueue_us(lambda: k1.launch(z, h, w, w1, b1), iters),
+        "k2_op_us": enqueue_us(lambda: k2.macow_unit_inverse(y, hu, weights, *an), iters),
+        "k2_ctypes_us": enqueue_us(lambda: k2.launch(y, hu, weights, *an), iters),
+    }
+    log(f"op overhead [{card}]: host us per launch, B={b} C={c} hc={hc}: K1 op "
+        f"{out['k1_op_us']:.1f} vs ctypes {out['k1_ctypes_us']:.1f}; K2 op {out['k2_op_us']:.1f} "
+        f"vs ctypes {out['k2_ctypes_us']:.1f}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA card")
     card, dev = card_line(), torch.device("cuda", 0)
-    log =lambda m: print(m, flush=True)  # noqa: E731
-    rows = {"k1_sweep": sweep_k1(dev, log, card), "k2_sweep": sweep_k2(dev, log, card)}
+    log = lambda m: print(m, flush=True)  # noqa: E731
+    rows = {"k1_sweep": sweep_k1(dev, log, card), "k2_sweep": sweep_k2(dev, log, card),
+            "op_overhead": op_overhead(dev, log, card)}
     print(json.dumps({"card": card, **rows}))
 
 

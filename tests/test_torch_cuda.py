@@ -284,3 +284,110 @@ def _copy_to(tree, device):
     if isinstance(tree, list):
         return [_copy_to(v, device) for v in tree]
     return tree.to(device, copy=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mcf_inverse", "macow_unit_inverse"])
+def test_custom_ops_equal_the_ctypes_launch(cuda, op):
+    """``torch.ops.ipoke.*`` on CUDA tensors is the ctypes launch: bitwise
+    equal, and each launches (and counts) once."""
+    if op == "mcf_inverse":
+        z, h, w, w1, b1 = _mcf(32, 128, "C", cuda, seed=21)
+        args = (z, h, [w, w1, b1], "C", 1.0, "elu", None)
+        direct = lambda: k1.launch(z, h, w, w1, b1, "C")   # noqa: E731
+        counter = k1.mcf_inverse
+    else:
+        y, h, weights, an1, an2 = _unit(32, 128, cuda, seed=22)
+        args = (y, h, [x for ws in weights for x in ws], an1, an2, 1.0, "elu", None)
+        direct = lambda: k2.launch(y, h, weights, an1, an2)   # noqa: E731
+        counter = k2.macow_unit_inverse
+    n0 = counter.launches
+    via_op = getattr(torch.ops.ipoke, op)(*args)
+    assert counter.launches == n0 + 1
+    ref = direct()
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert torch.equal(via_op, ref)
+    torch.library.opcheck(getattr(torch.ops.ipoke, op).default, args,
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+def _tiny_spec(s=32, t=3):
+    from ipoke_tpu_torch.flows.macow import FlowSpec
+    from ipoke_tpu_torch.models.encoders import WrapperSpec
+    from ipoke_tpu_torch.models.first_stage import FirstStageSpec
+    from ipoke_tpu_torch.models.second_stage import SecondStageSpec
+
+    return SecondStageSpec(
+        flow=FlowSpec(num_steps=(1, 1), in_channels=16, hidden_channels=32, h_channels=32,
+                      factor=16, mcf_backend="cuda_unit"),
+        first_stage=FirstStageSpec(z_dim=16, spatial_size=s, max_frames=t, enc_channels=(16,) * 4,
+                                   dec_channels=(16,) * 3, n_gru_layers=2, min_spatial_size=8),
+        poke_embedder=WrapperSpec(nf_in=2, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                  deterministic=True),
+        conditioner=WrapperSpec(nf_in=3, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                deterministic=False))
+
+
+@pytest.mark.gpu
+def test_exported_flow_artifact_runs_k2_on_the_card(cuda, tmp_path):
+    """A tiny flow artifact exported on the card holds one
+    ``ipoke::macow_unit_inverse`` node per MaCowUnit, launches K2 once per
+    unit when it runs, and equals the live ``forward_sample`` within
+    CUDA_BATCH_TOL; the CPU may not load it."""
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.serve import artifact
+    from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL
+    from ipoke_tpu_torch.utils import synth
+
+    spec = _tiny_spec()
+    params = synth.synth_params(spec, seed=0, device=cuda)
+    params = dict(params, flow=synth.set_flow_output_gains(params["flow"], 0.02))
+    artifact.export_sampler(params, spec, tmp_path / "a", buckets=(2,))
+    art = artifact.load_artifact(tmp_path / "a", cuda)
+    units = 4 * sum(spec.flow.num_steps)
+    nodes = [n for n in art.programs[2].graph.nodes if "ipoke.macow_unit_inverse" in str(n.target)]
+    assert len(nodes) == units
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.rand(2, 32, 32, 3, generator=gen, device=cuda) * 2 - 1
+    poke = torch.randn(2, 32, 32, 2, generator=gen, device=cuda)
+    z = art.draw_z([4, 5])
+    n0 = k2.macow_unit_inverse.launches
+    got = art.run(art.params, x0, poke, z)
+    torch.cuda.synchronize()
+    assert k2.macow_unit_inverse.launches == n0 + units
+    live = second_stage.forward_sample(params, spec, {"images": x0[:, None], "poke": poke},
+                                       length=2, add_first_frame=True, z=z)[0]
+    assert got.shape == (2, 3, 32, 32, 3) and bool(torch.isfinite(got).all())
+    assert float((got - live).abs().max()) <= CUDA_BATCH_TOL
+    with pytest.raises(ValueError, match="exported for cuda"):
+        artifact.load_artifact(tmp_path / "a", "cpu")
+
+
+@pytest.mark.gpu
+def test_direct_distill_step_on_the_card(cuda):
+    """One direct-student distill step at a tiny spec on the card: the
+    teacher's reverse launches K2 once per unit, the loss is finite and the
+    student moves."""
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.train import distill
+    from ipoke_tpu_torch.train.second_stage import adam, float_leaves
+    from ipoke_tpu_torch.utils import prng, synth
+
+    spec = _tiny_spec()
+    teacher = synth.synth_params(spec, seed=0, device=cuda)
+    teacher = dict(teacher, flow=synth.set_flow_output_gains(teacher["flow"], 0.02))
+    init_state, step = distill.make_distill_step(spec, distill.DirectStudentSpec(32, 2), adam(1e-3))
+    state = init_state(prng.prng_key(0), cuda)
+    start = [p.detach().clone() for p in float_leaves(state["params"])]
+    x0 = torch.zeros(2, 32, 32, 3, device=cuda)
+    cond = second_stage.embed_cond(teacher, spec, x0, torch.ones(2, 32, 32, 2, device=cuda))
+    z = prng.normal(prng.prng_key(1), (2, 8, 8, 16), cuda)
+    n0 = k2.macow_unit_inverse.launches
+    state, logs = step(state, teacher, z, cond)
+    torch.cuda.synchronize()
+    assert k2.macow_unit_inverse.launches == n0 + 4 * sum(spec.flow.num_steps)
+    assert state["step"] == 1 and bool(torch.isfinite(logs["loss"]))
+    assert float(logs["teacher_finite_frac"]) == 1.0
+    moved = [not torch.equal(a, b) for a, b in zip(start, float_leaves(state["params"]))]
+    assert sum(moved) > len(moved) // 2
