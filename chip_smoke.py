@@ -61,9 +61,19 @@ Phases, each fatal on failure:
              temporary directory) reloads to the trained params bitwise, and
              reverse(forward(x)) on the trained flow returns the motion latent
              within TRAIN_TOL with 200 K2 launches.
-  9. report  a JSON line of the train phase, one of the distill and
-             artifact phases, a JSON line of kernels, the card's line, and
-             last {"ok": true, "device": {...}}.
+  9. stage1  first-stage cVAE-GAN training: experiments/first_stage.train
+             on iper_128's first stage at full width from JAX's init at seed
+             0 (temporal disc ResNet-18 3D with its gradient penalty, patch
+             disc, VGG19 perceptual loss, three optimizers), synthetic data
+             (B=8, 10 frames of 128^2), f32, one warm-up step and
+             STAGE1_STEPS timed steps; no kernel launches in a step.
+             Checked: every loss finite, all three nets moved, the
+             discriminators' u refreshed and the generator's as drawn,
+             last.npz reloads bitwise (u included), and the gradient penalty
+             on one example on the card against the CPU's.
+ 10. report  a JSON line of the stage-1 phase, one of the train phase, one
+             of the distill and artifact phases, a JSON line of kernels, the
+             card's line, and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
@@ -93,11 +103,14 @@ import torch  # noqa: E402
 
 from ipoke_tpu_torch import registry  # noqa: E402
 from ipoke_tpu_torch.ckpt import io  # noqa: E402
-from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage  # noqa: E402
+from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, bridge_second_stage  # noqa: E402
 from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches  # noqa: E402
+from ipoke_tpu_torch.experiments import first_stage as experiment_fs  # noqa: E402
 from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
 from ipoke_tpu_torch.flows import transformer  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
+from ipoke_tpu_torch.models.discriminators import gradient_penalty, temp_disc_apply  # noqa: E402
+from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
@@ -105,6 +118,7 @@ from ipoke_tpu_torch.serve import artifact, loadtest  # noqa: E402
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
 from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
 from ipoke_tpu_torch.train import distill  # noqa: E402
+from ipoke_tpu_torch.train import first_stage as train_fs  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
@@ -132,6 +146,8 @@ STUDENT_CALLS = 3          # timed forward_sample_student calls, after one warm-
 # run (PERF.md)
 ARTIFACT_FLOW_BUCKETS = (8,)
 ARTIFACT_STUDENT_BUCKETS = (1, 2, 4, 8)
+STAGE1_STEPS = 4           # timed stage-1 GAN steps, after one warm-up step
+STAGE1_GP_TOL = 2e-4       # the gradient penalty on the card against the CPU's
 
 
 def log(msg):
@@ -773,6 +789,152 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
             "roundtrip_launches": {"mcf_inverse": n_rt[0], "macow_unit_inverse": n_rt[1]}}
 
 
+def stage1_config(entry, b=BATCH, steps=STAGE1_STEPS):
+    """An in-memory config that trains the first stage of the registry model
+    ``entry`` at full width as configs/first_stage.yaml does (lr 2e-4, weight
+    decay 1e-5, w_vgg = w_l1 = 10, w_kl 1e-7, the temporal disc's gp weight
+    1 on mf_dt = the data's frames, 16 spatial examples) on the synthetic
+    dataset."""
+    ss = entry.spatial_size
+    return {
+        "general": {"experiment": "chip_smoke_stage1", "seed": 0},
+        "data": {"spatial_size": [ss, ss], "max_frames": entry.max_frames, "batch_size": b,
+                 "n_examples": 2 * b},
+        "architecture": {"z_dim": entry.fs_z_dim,
+                         "ENC_M_channels": list(registry.default_enc_channels(ss)),
+                         "dec_channels": list(registry.default_dec_channels(ss)),
+                         "n_gru_layers": 4, "min_spatial_size": entry.min_spatial_size,
+                         "motion_bias": True, "deterministic": False, "spectral_norm": True},
+        "training": {"lr": 2e-4, "weight_decay": 1e-5, "gamma": 0.98, "n_epochs": 1,
+                     "max_batches_per_epoch": 1 + steps, "full_sequence": True,
+                     "w_vgg": 10, "w_l1": 10, "w_kl": 1e-7},
+        "d_t": {"max_frames": 12, "gp_weight": 1.0},
+        "d_s": {"gp_weight": 0.0, "n_examples": 16},
+    }
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def _gp(specs_dt, dt_params, x):
+    """The temporal disc's gradient penalty on ``x`` with ``dt_params``
+    spectral-normed, as the train step computes it."""
+    p_sn = materialize_spectral_norm(dt_params)
+    x = x.detach().requires_grad_(True)
+    pred, _ = temp_disc_apply(p_sn, x, specs_dt)
+    return gradient_penalty(pred, x).item()
+
+
+def phase_stage1(device, card, entry, steps=STAGE1_STEPS, b=BATCH):
+    """Stage-1 cVAE-GAN training: ``experiments/first_stage.train`` on the
+    first stage of ``entry`` at full width from JAX's init at seed 0,
+    synthetic batches of ``b`` videos, one warm-up step then ``steps`` timed
+    steps; the launch counters read around it (no kernel is on a stage-1
+    step).  Checked: every loss of every step finite; the trainable leaves of
+    all three nets moved (against a fresh ``init_gan_state`` of the seed);
+    both discriminators' ``u`` refreshed and the generator's as drawn;
+    ``last.npz`` reloads through ``ckpt/io`` and the bridge to the trained
+    nets bitwise, ``u`` included; and the temporal disc's gradient penalty on
+    one example on the card equals the CPU's on the same weights (JAX's init;
+    the trained disc's penalty is ~1e-4 of it) within
+    STAGE1_GP_TOL (1 + |gp_cpu|)."""
+    config = stage1_config(entry, b, steps)
+    fs_spec, ds_spec, dt_spec, _ = experiment_fs.specs_from_config(config)
+    if fs_spec != registry.build_specs(entry).first_stage:
+        raise SystemExit(f"stage1: the config's first stage is not the registry's {entry.name}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
+        _zero_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        run = experiment_fs.train(config, dirs, device=device, max_steps=1 + steps)
+        n_step = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0
+        hist, state = run["history"], run["state"]
+        keys = list(hist[0].keys() - {"step_s"})
+        for i, h in enumerate(hist):
+            log(f"stage1 [{card}]: step {i}{' (warm-up)' if i == 0 else ''}: "
+                + ", ".join(f"{k} {h[k]:.6g}" for k in sorted(keys)) + f"; {h['step_s'] * 1e3:.1f} ms")
+        step_ms = [h["step_s"] * 1e3 for h in hist]
+        median = _median(step_ms[1:])
+        launches = sum(n_step) / len(hist)
+        n_params = {n: sum(t.numel() for t in train_ss.float_leaves(
+            train_fs.trainable(getattr(state, f"{n}_params")))) for n in train_fs.NETS}
+        log(f"stage1 [{card}]: {entry.name} first stage full width (z {fs_spec.z_dim}, encoder "
+            f"{fs_spec.enc_channels}, decoder {fs_spec.dec_channels}, {fs_spec.n_gru_layers} GRU "
+            f"layers), temporal disc ResNet-18 3D on {dt_spec.sequence_length} frames, patch disc "
+            f"ndf {ds_spec.ndf}, VGG19 on {2 * b * (entry.max_frames - 1)} frames; trainable params "
+            + ", ".join(f"{n} {v / 1e6:.2f} M" for n, v in n_params.items())
+            + f"; B={b}, {entry.max_frames} frames of {entry.spatial_size}^2, f32: init "
+            f"{run['init_s']:.2f} s; step first {step_ms[0]:.1f} ms, median of {steps} {median:.1f} "
+            f"ms; peak {peak:.2f} GiB; K1/K2 launches in the steps {n_step[0]}/{n_step[1]} "
+            f"({launches:g} per step)")
+        if not all(np.isfinite(h[k]) for h in hist for k in keys):
+            raise SystemExit("stage1: a loss is not finite")
+        if n_step != (0, 0):
+            raise SystemExit(f"stage1: a kernel launched in a stage-1 step: K1/K2 {n_step}")
+
+        start, _ = train_fs.init_gan_state(prng.prng_key(config["general"]["seed"]), fs_spec,
+                                           ds_spec, dt_spec, device=device)
+        moved = {}
+        for n in train_fs.NETS:
+            now, then = _flat(getattr(state, f"{n}_params")), _flat(getattr(start, f"{n}_params"))
+            trained = [k for k in now if not k.endswith("/u")]
+            moved[n] = sum(not torch.equal(now[k].detach(), then[k]) for k in trained)
+            u_same = [torch.equal(now[k], then[k]) for k in now if k.endswith("/u")]
+            log(f"stage1: {n}: {moved[n]} of {len(trained)} trainable leaves moved; "
+                f"{len(u_same) - sum(u_same)} of {len(u_same)} u refreshed")
+            if moved[n] < len(trained) // 2 or (all(u_same) if n != "gen" else not all(u_same)):
+                raise SystemExit(f"stage1: {n} did not train as it should")
+        gp_dt = start.dt_params
+        del start
+        t0 = time.perf_counter()
+        saved, meta = io.load(run["ckpt"])
+        back = bridge_gan_params(saved, device)
+        load_s = time.perf_counter() - t0
+        ckpt_ok = meta["step"] == 1 + steps and all(
+            _flat(back[f"{n}_params"]).keys() == _flat(getattr(state, f"{n}_params")).keys()
+            and all(torch.equal(v, _flat(getattr(state, f"{n}_params"))[k].detach())
+                    for k, v in _flat(back[f"{n}_params"]).items())
+            for n in train_fs.NETS)
+        ckpt_gb = os.path.getsize(run["ckpt"]) / 1e9
+        del saved, back
+        log(f"stage1: last.npz ({ckpt_gb:.3f} GB, step {meta['step']}, written in "
+            f"{run['save_s']:.1f} s) reloads to the trained nets bitwise, u included: {ckpt_ok} "
+            f"({load_s:.1f} s)")
+        if not ckpt_ok:
+            raise SystemExit("stage1: last.npz does not reload to the trained nets")
+
+    example = next(train_batches(from_data_config(config["data"]), 1, seed=1))["images"]
+    x = torch.from_numpy(example[:, :dt_spec.sequence_length])
+    gp_card = _gp(dt_spec, gp_dt, x.to(device))
+    with torch.backends.mkldnn.flags(enabled=False):   # oneDNN's f32 convs round coarser
+        cpu_params = _to_cpu(gp_dt)
+        t0 = time.perf_counter()
+        gp_cpu = _gp(dt_spec, cpu_params, x)
+        cpu_s = time.perf_counter() - t0
+    gp_err = abs(gp_card - gp_cpu)
+    log(f"stage1: gradient penalty of the initial temporal disc on one example (1 x "
+        f"{dt_spec.sequence_length} frames of {entry.spatial_size}^2): card {gp_card:.9g}, CPU "
+        f"{gp_cpu:.9g} ({cpu_s:.1f} s), |diff| {gp_err:.3g} (tolerance {STAGE1_GP_TOL} x (1 + |CPU|))")
+    if not gp_err <= STAGE1_GP_TOL * (1 + abs(gp_cpu)):
+        raise SystemExit(f"stage1: the card's gradient penalty disagrees with the CPU's: {gp_err}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"stage1: the phase took {phase_s:.1f} s")
+    return {"phase_s": phase_s, "init_s": run["init_s"], "save_s": run["save_s"], "load_s": load_s,
+            "step_ms_first": step_ms[0], "step_ms_median": median, "step_ms": step_ms,
+            "peak_gib": peak, "batch": b, "losses": {k: [h[k] for h in hist] for k in sorted(keys)},
+            "moved": moved, "ckpt_gb": ckpt_gb, "gp_card": gp_card, "gp_cpu": gp_cpu,
+            "gp_abs_err": gp_err,
+            "launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]}}
+
+
 def ptxas_report(log_text):
     """registers / shared memory / spills lines of nvcc -Xptxas -v."""
     keep = [ln.strip() for ln in log_text.splitlines()
@@ -836,6 +998,7 @@ def main():
     log(f"artifact: the phase took {time.perf_counter() - t0:.1f} s")
     del params
     train = phase_train(device, card, entry)
+    stage1 = phase_stage1(device, card, entry)
 
     src = "ipoke_tpu_torch/csrc/{}.cu"
     rows = [
@@ -847,6 +1010,7 @@ def main():
              artifact_student_serve_launches=art["student"]["launches"][name],
              train_step_launches=train["launches"][name],
              train_roundtrip_launches=train["roundtrip_launches"][name],
+             stage1_step_launches=stage1["launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -858,6 +1022,7 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    print(json.dumps({"stage1": stage1}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,9 +15,11 @@
   wrappers and the spectral-norm vectors ``u``.
 
 A component missing from the tree is missing from the result, so a training
-checkpoint's trainable subtree bridges too.  A flow distillation student is
-a flow tree (``bridge_flow``); a direct student has its own pair
-(``bridge_direct`` / ``unbridge_direct``).  ``unbridge_second_stage`` is
+checkpoint's trainable subtree bridges too.  Stage-1 training trees keep
+``u``: ``bridge_gan_params`` / ``unbridge_gan_params`` carry the generator
+(a first-stage tree) and both discriminators both ways, ``u`` included.  A
+flow distillation student is a flow tree (``bridge_flow``); a direct
+student has its own pair (``bridge_direct`` / ``unbridge_direct``).  ``unbridge_second_stage`` is
 the inverse: the port's params (or any tree of that layout, an optimizer
 moment with None at the integer leaves) back to JAX's layouts as numpy, steps
 stacked and permutations int32, for ``ckpt/io.save``.
@@ -48,21 +50,22 @@ def _n_stacked(tree):
     return tree.shape[0]
 
 
-def _convert(tree, device, transposed=False):
-    """Leaves to tensors; conv kernels 'w'/'v' to the port's layouts."""
+def _convert(tree, device, transposed=False, keep_u=False):
+    """Leaves to tensors; conv kernels 'w'/'v' to the port's layouts; the
+    spectral-norm vectors 'u' dropped unless ``keep_u``."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k == "u":
+            if k == "u" and not keep_u:
                 continue
             if k in KERNELS and not isinstance(v, (dict, list)) and np.ndim(v) in (4, 5):
                 w = torch.from_numpy(np.array(v, dtype=np.float32))
                 out[k] = core.from_hwio(w, transposed).to(device)
             else:
-                out[k] = _convert(v, device, transposed)
+                out[k] = _convert(v, device, transposed, keep_u)
         return out
     if isinstance(tree, list):
-        return [_convert(v, device, transposed) for v in tree]
+        return [_convert(v, device, transposed, keep_u) for v in tree]
     a = np.asarray(tree)
     if np.issubdtype(a.dtype, np.integer):
         return torch.from_numpy(a.astype(np.int64)).to(device)
@@ -90,23 +93,22 @@ def bridge_flow(tree, device=None):
     return {"levels": levels}
 
 
-def _bridge_first_stage(fs, device):
+def _bridge_first_stage(fs, device, keep_u=False):
     gen = fs["gen"]
+    conv = lambda t, transposed=False: _convert(t, device, transposed, keep_u)  # noqa: E731
     out = {
-        "rnn": _convert(fs["rnn"], device),
         "gen": {
-            "in_block": _convert(gen["in_block"], device),
+            "in_block": conv(gen["in_block"]),
             # upsampling res blocks: res_conv and conv1 are transpose convs
-            "blocks": [dict(_convert({k: v for k, v in b.items() if k != "conv2"}, device,
-                                     transposed=True),
-                            conv2=_convert(b["conv2"], device)) for b in gen["blocks"]],
-            "spades": _convert(gen["spades"], device),
-            "out_conv": _convert(gen["out_conv"], device),
+            "blocks": [{k: conv(v, transposed=k != "conv2") for k, v in b.items()}
+                       for b in gen["blocks"]],
+            "spades": conv(gen["spades"]),
+            "out_conv": conv(gen["out_conv"]),
         },
     }
-    for key in ("enc_motion", "motion_bias"):
+    for key in ("enc_motion", "rnn", "motion_bias"):
         if key in fs:
-            out[key] = _convert(fs[key], device)
+            out[key] = conv(fs[key])
     return out
 
 
@@ -191,8 +193,8 @@ def _unbridge_first_stage(fs):
     out = {k: _export(v) for k, v in fs.items() if k != "gen"}
     out["gen"] = {
         "in_block": _export(gen["in_block"]),
-        "blocks": [dict(_export({k: v for k, v in b.items() if k != "conv2"}, transposed=True),
-                        conv2=_export(b["conv2"])) for b in gen["blocks"]],
+        "blocks": [{k: _export(v, transposed=k != "conv2") for k, v in b.items()}
+                   for b in gen["blocks"]],
         "spades": _export(gen["spades"]),
         "out_conv": _export(gen["out_conv"]),
     }
@@ -229,3 +231,28 @@ def bridge_direct(tree, device=None):
 def unbridge_direct(params):
     """The inverse of ``bridge_direct``, as numpy for ``ckpt/io.save``."""
     return _export(params)
+
+
+# ---------------------------------------------------------------------------
+# stage-1 GAN training: generator, spatial and temporal discriminator
+# ---------------------------------------------------------------------------
+
+GAN_NETS = ("gen_params", "ds_params", "dt_params")
+
+
+def bridge_gan_params(tree, device=None):
+    """The nets of a JAX ``GanTrainState`` (or of its ``last.npz`` at the
+    path ``tree``), ``u`` kept: those of 'gen_params', 'ds_params' and
+    'dt_params' it holds, in the port's layouts (the 3D kernels DHWIO ->
+    OIDHW)."""
+    device = resolve_device(device)
+    tree = _tree_of(tree)
+    return {k: (_bridge_first_stage(tree[k], device, keep_u=True) if k == "gen_params"
+                else _convert(tree[k], device, keep_u=True)) for k in GAN_NETS if k in tree}
+
+
+def unbridge_gan_params(nets):
+    """The inverse of ``bridge_gan_params`` (any of the three keys, or trees
+    of that layout such as optimizer moments), as numpy for ``ckpt/io.save``."""
+    return {k: (_unbridge_first_stage(v) if k == "gen_params" else _export(v))
+            for k, v in nets.items()}

@@ -37,14 +37,18 @@ class SpadeDecoderSpec:
         return len(self.dec_channels) - 1
 
 
-def init(key, spec: SpadeDecoderSpec, device="cpu"):
+def init(key, spec: SpadeDecoderSpec, device="cpu", spectral_u=False):
+    """``spectral_u``: the res blocks carry their spectral-norm vectors ``u``
+    (when ``spec.spectral_norm``), as training needs them."""
     ks = prng.split(key, 2 * spec.n_stages + 2)
     nf_in = 2 * spec.z_dim if spec.stacked_input else spec.z_dim
     ch = spec.dec_channels
+    snorm = spectral_u and spec.spectral_norm
     return {
-        "in_block": init_res_block(ks[0], nf_in, ch[0], norm=spec.norm, device=device),
+        "in_block": init_res_block(ks[0], nf_in, ch[0], norm=spec.norm, snorm=snorm,
+                                   device=device),
         "blocks": [init_res_block(ks[1 + i], 2 * nf if i < spec.n_skip_stages else ch[i], nf,
-                                  norm="none", upsampling=True, device=device)
+                                  norm="none", upsampling=True, snorm=snorm, device=device)
                    for i, nf in enumerate(ch[1:])],
         "spades": [init_spade(ks[1 + spec.n_stages + i], nf, device)
                    for i, nf in enumerate(ch[1:])],

@@ -2,6 +2,7 @@
 
 encode: video --3D ResNet (``models/motion_encoder``)--> motion latent.
 decode: motion latent + start frame --ConvGRU + SPADE decoder--> frames.
+forward: both, the autoencoding pass of stage-1 training.
 """
 from __future__ import annotations
 
@@ -9,10 +10,12 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ipoke_tpu_torch.models import conv_gru, decoder, motion_encoder
 from ipoke_tpu_torch.models.decoder import SpadeDecoderSpec
 from ipoke_tpu_torch.models.motion_encoder import MotionEncoderSpec
+from ipoke_tpu_torch.nn import blocks
 from ipoke_tpu_torch.utils import prng
 
 DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -53,12 +56,14 @@ class FirstStageSpec:
         )
 
 
-def init(key, spec: FirstStageSpec, device="cpu"):
+def init(key, spec: FirstStageSpec, device="cpu", spectral_u=False):
+    """``spectral_u``: the decoder's spectral-normed convs carry their ``u``
+    (training); sampling needs none."""
     ks = prng.split(key, 4)
     p = {
         "enc_motion": motion_encoder.init(ks[0], spec.encoder_spec, device),
         "rnn": conv_gru.init_stack(ks[1], spec.z_dim, spec.z_dim, spec.n_gru_layers, device=device),
-        "gen": decoder.init(ks[2], spec.decoder_spec, device),
+        "gen": decoder.init(ks[2], spec.decoder_spec, device, spectral_u=spectral_u),
     }
     if spec.motion_bias:
         s = spec.min_spatial_size
@@ -74,12 +79,32 @@ def _cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def decode(params, motion, start_frame, spec: FirstStageSpec, length: int):
+def materialize_spectral_norm(params):
+    """``nn/blocks.materialize_spectral_norm`` over a first-stage tree: the
+    decoder's upsampling blocks hold conv1 and res_conv as transpose convs."""
+    sn = blocks.materialize_spectral_norm
+    gen = params["gen"]
+    ups = [{k: sn(v, transposed=k != "conv2") for k, v in b.items()} for b in gen["blocks"]]
+    return dict(params, gen=dict(gen, in_block=sn(gen["in_block"]), blocks=ups))
+
+
+def encode(params, x, spec: FirstStageSpec, rng=None):
+    """x: (B,T,S,S,3) -> (motion, mu, logvar), each (B,s,s,z); the motion
+    drawn from ``rng`` (a JAX key) unless the spec is deterministic.  All T
+    frames with ``full_sequence``, else frames 1..T-1."""
+    x_in = x if spec.full_sequence else x[:, 1:]
+    return motion_encoder.apply(params["enc_motion"], x_in, spec.encoder_spec, rng=rng)
+
+
+def decode(params, motion, start_frame, spec: FirstStageSpec, length: int,
+           remat_body: bool = False):
     """Unroll ``length`` frames from a motion latent and a start frame.
 
     motion: (B,s,s,z); start_frame: (B,S,S,3) -> (B,length,S,S,3) in
     motion's dtype.  The GRU starts from ``[motion] * n_gru_layers`` and reads
-    the broadcast ``motion_bias`` as its input at every step.
+    the broadcast ``motion_bias`` as its input at every step.  ``remat_body``:
+    each frame's decoder runs under activation checkpointing, so its backward
+    recomputes one frame's activations instead of keeping every frame's.
     """
     dec_spec = spec.decoder_spec
     b = start_frame.shape[0]
@@ -96,5 +121,14 @@ def decode(params, motion, start_frame, spec: FirstStageSpec, length: int):
     frames = []
     for _ in range(length):
         hidden = conv_gru.stack_apply(params["rnn"], in_rnn, hidden)
-        frames.append(decoder.apply(gen, hidden[-1].to(dtype), start_frame, dec_spec, spade_feats))
+        args = (gen, hidden[-1].to(dtype), start_frame, dec_spec, spade_feats)
+        frames.append(checkpoint(decoder.apply, *args, use_reentrant=False) if remat_body
+                      else decoder.apply(*args))
     return torch.stack(frames, dim=1).to(motion.dtype)
+
+
+def forward(params, x, spec: FirstStageSpec, rng=None, remat_decode: bool = False):
+    """The autoencoding pass of training: (x_hat (B,T-1,S,S,3), mu, logvar)."""
+    motion, mu, logvar = encode(params, x, spec, rng=rng)
+    x_hat = decode(params, motion, x[:, 0], spec, length=x.shape[1] - 1, remat_body=remat_decode)
+    return x_hat, mu, logvar

@@ -122,11 +122,12 @@ def init(key, spec: MotionEncoderSpec, device="cpu"):
     return p
 
 
-def apply(params, x, spec: MotionEncoderSpec):
+def apply(params, x, spec: MotionEncoderSpec, rng=None):
     """x: (B, T, H, W, 3) video -> (z, mu, logvar), each (B, s, s, z_dim).
 
-    The encoder runs without a sampling key, as the second stage calls it:
-    z is mu."""
+    Without a sampling key (the second stage) or with a deterministic spec,
+    z is mu; with a JAX key ``rng`` (``utils/prng``), the reparameterised
+    draw ``normal(rng, logvar.shape) * exp(logvar / 2) + mu``."""
     _, stride1, stride4, has_l4, has_l5, _ = spec.derived()
     out = conv3d(x, params["conv1"]["w"], stride=(2, 2, 2), padding=(1, 3, 3))
     out = F.relu(group_norm(out, params["gn1"]["gamma"], params["gn1"]["beta"], 16))
@@ -140,4 +141,7 @@ def apply(params, x, spec: MotionEncoderSpec):
     out = out.squeeze(1) if out.shape[1] == 1 else out.mean(dim=1)   # temporal squeeze
     mu = core.conv2d(out, params["conv_mu"]["w"], params["conv_mu"]["b"], padding=1)
     logvar = core.conv2d(out, params["conv_var"]["w"], params["conv_var"]["b"], padding=1)
-    return mu, mu, logvar
+    if spec.deterministic or rng is None:
+        return mu, mu, logvar
+    eps = prng.normal(rng, tuple(logvar.shape), logvar.device).to(mu.dtype)
+    return eps * torch.exp(0.5 * logvar) + mu, mu, logvar

@@ -1,9 +1,13 @@
 """Conv blocks on NHWC tensors (counterpart of ``ipoke_tpu/nn/blocks.py``).
 
-Spectral-norm power-iteration vectors ``u`` play no part at inference (the
-JAX package applies ``w`` as stored), so the port neither carries nor uses
-them; the ``init_*`` functions skip their draw, which no other key depends on.
-``transposed=True`` gives a kernel for ``conv_transpose2d``.
+Spectral norm: a conv whose reference counterpart is wrapped in
+``torch.nn.utils.spectral_norm`` carries a power-iteration vector ``u`` beside
+its kernel when it is drawn with ``snorm=True`` (training).  ``apply`` uses
+``w`` as stored, as at inference; a training step applies
+:func:`materialize_spectral_norm` to the tree first.  Sampling trees carry no
+``u``: its draw (``fold_in(key, 7)``) consumes no split, so every other draw
+is the same with or without it.  ``transposed=True`` gives a kernel for
+``conv_transpose2d``.
 """
 from __future__ import annotations
 
@@ -22,36 +26,85 @@ from ipoke_tpu_torch.nn.core import (
 from ipoke_tpu_torch.utils import prng
 
 
-def init_conv(key, kh, kw, c_in, c_out, transposed=False, device="cpu"):
+def spectral_u(key, c_out, device="cpu"):
+    """The unit power-iteration vector of a spectral-normed conv drawn from ``key``."""
+    u = prng.normal(prng.fold_in(key, 7), (c_out,), device)
+    return u / (torch.linalg.vector_norm(u) + 1e-12)
+
+
+def init_conv(key, kh, kw, c_in, c_out, transposed=False, snorm=False, device="cpu"):
     """torch's default conv init (the JAX package's ``init='torch'``)."""
     kw_, kb = prng.split(key)
     shape = (kh, kw, c_in, c_out)
-    return {"w": core.from_hwio(core.kaiming_uniform_torch_default(kw_, shape, device), transposed),
-            "b": core.conv_bias_torch_default(kb, shape, c_out, device)}
+    p = {"w": core.from_hwio(core.kaiming_uniform_torch_default(kw_, shape, device), transposed),
+         "b": core.conv_bias_torch_default(kb, shape, c_out, device)}
+    if snorm:
+        p["u"] = spectral_u(key, c_out, device)
+    return p
 
 
-def init_conv2d_block(key, c_in, c_out, ks, norm="none", transposed=False, device="cpu"):
+def init_conv2d_block(key, c_in, c_out, ks, norm="none", transposed=False, snorm=False,
+                      device="cpu"):
     k1, _ = prng.split(key)
-    p = {"conv": init_conv(k1, ks, ks, c_in, c_out, transposed=transposed, device=device)}
+    p = {"conv": init_conv(k1, ks, ks, c_in, c_out, transposed=transposed, snorm=snorm,
+                           device=device)}
     if norm == "group":
         p["norm"] = {"gamma": torch.ones(c_out, device=device),
                      "beta": torch.zeros(c_out, device=device)}
     return p
 
 
-def init_convT2d_block(key, c_in, c_out, ks, norm="none", device="cpu"):
+def init_convT2d_block(key, c_in, c_out, ks, norm="none", snorm=False, device="cpu"):
     """The kernel of ``convT2d_block_apply``: ``(in, out, kh, kw)``."""
-    return init_conv2d_block(key, c_in, c_out, ks, norm, transposed=True, device=device)
+    return init_conv2d_block(key, c_in, c_out, ks, norm, transposed=True, snorm=snorm,
+                             device=device)
 
 
-def init_res_block(key, c_in, c_out, norm="in", upsampling=False, stride=1, device="cpu"):
+def init_res_block(key, c_in, c_out, norm="in", upsampling=False, stride=1, snorm=False,
+                   device="cpu"):
     k1, k2, k3 = prng.split(key, 3)
     first = init_convT2d_block if upsampling else init_conv2d_block   # conv1 and res_conv
-    p = {"conv1": first(k1, c_in, c_out, 3, norm, device=device),
-         "conv2": init_conv2d_block(k2, c_out, c_out, 3, norm, device=device)}
+    p = {"conv1": first(k1, c_in, c_out, 3, norm, snorm=snorm, device=device),
+         "conv2": init_conv2d_block(k2, c_out, c_out, 3, norm, snorm=snorm, device=device)}
     if c_in != c_out or upsampling or stride != 1:
-        p["res_conv"] = first(k3, c_in, c_out, 3, "none", device=device)
+        p["res_conv"] = first(k3, c_in, c_out, 3, "none", snorm=snorm, device=device)
     return p
+
+
+def _map_spectral(params, fn):
+    """``params`` with ``fn(node)`` in place of every dict node holding ``w`` and ``u``."""
+    if isinstance(params, dict):
+        if "w" in params and "u" in params:
+            return fn(params)
+        return {k: _map_spectral(v, fn) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_map_spectral(v, fn) for v in params)
+    return params
+
+
+def materialize_spectral_norm(params, transposed=False):
+    """Every ``w`` that carries a ``u`` replaced by ``w / sigma`` after one
+    power iteration, with the new ``u`` beside it (detached); gradients flow
+    to ``w`` and ``u``.  ``transposed``: the kernels of ``params`` are
+    transpose convs ``(in, out, kh, kw)``, normalised along axis 1."""
+    def fn(node):
+        w, u = core.spectral_normalize(node["w"], node["u"], out_axis=1 if transposed else 0)
+        return dict(node, w=w, u=u)
+
+    return _map_spectral(params, fn)
+
+
+def refresh_spectral_u(params, transposed=False):
+    """One power iteration of each stored ``u``, in place and without
+    gradient; the weights stay as they are (a training step runs it after
+    the optimizer update, as torch refreshes its buffer every forward)."""
+    def fn(node):
+        with torch.no_grad():
+            _, u = core.spectral_normalize(node["w"], node["u"], out_axis=1 if transposed else 0)
+            node["u"].copy_(u)
+        return node
+
+    _map_spectral(params, fn)
 
 
 def init_norm_conv2d(key, ks, c_in, c_out, device="cpu"):

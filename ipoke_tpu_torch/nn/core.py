@@ -183,3 +183,22 @@ def weight_norm_materialize(v, g):
     """
     norm = v.square().sum(dim=tuple(range(1, v.ndim)), keepdim=True).sqrt()
     return v / norm.clamp_min(1e-12) * g.reshape((-1,) + (1,) * (v.ndim - 1)).to(v.dtype)
+
+
+def spectral_normalize(w, u, out_axis=0, eps=1e-12):
+    """One power iteration of spectral norm: ``(w / sigma, u_new)``.
+
+    ``w`` flattens to ``(O, rest)`` along ``out_axis``: 0 for OIHW / OIDHW,
+    1 for a transpose conv's ``(in, out, kh, kw)``; ``u``: (O,).  Gradients
+    flow through ``u`` and ``v`` as well as ``w`` (only the returned ``u``
+    is detached), as in the JAX package; ``torch.nn.utils.spectral_norm``
+    iterates under ``no_grad`` and so gives other gradients.
+    """
+    w_mat = w.movedim(out_axis, 0).reshape(w.shape[out_axis], -1)
+    v = w_mat.T @ u
+    v = v / (torch.linalg.vector_norm(v) + eps)
+    u = w_mat @ v
+    u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ (w_mat @ v)
+    return w / sigma, u.detach()
+

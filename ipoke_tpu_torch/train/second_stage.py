@@ -232,11 +232,12 @@ class Optimizer:
                 for t, s in zip(self.transforms, state)}
 
 
-def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False):
+def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False,
+               b1: float = 0.9, b2: float = 0.999):
     """torch.optim.Adam semantics: coupled L2 (``wd * param`` added to the
     gradient before the moments), optional amsgrad; the reference's optimizer."""
     steps = [_DecayedWeights(weight_decay)] if weight_decay else []
-    steps.append(_ScaleByTorchAmsgrad() if amsgrad else _ScaleByAdam())
+    steps.append((_ScaleByTorchAmsgrad if amsgrad else _ScaleByAdam)(b1, b2))
     return steps + [_ScaleBySchedule(schedule)]
 
 

@@ -20,10 +20,11 @@ alone.  This module gives the same numbers from the same seed:
   the counter ``(0, data)``, and ``permutation`` sorts ``range(n)`` stably by
   the bits of ``split(key)[1]`` (one sort round, as JAX does up to n ~ 1600).
 
-torch's uint32 support is thin, so the words live in int64 tensors masked to
-32 bits.  Every function runs on the device of its input (or ``device``), as
-one batch of elementwise ops; JAX computes these draws in XLA, not in a
-kernel, and so does the port.
+torch's uint32 support is thin, so a bulk draw hashes int32 tensors holding
+the uint32 bits (int32 adds wrap as uint32 adds do) and returns int64
+values in [0, 2**32).  Every function runs on the device of its input (or
+``device``), as one batch of elementwise ops; JAX computes these draws in
+XLA, not in a kernel, and so does the port.
 """
 from __future__ import annotations
 
@@ -75,14 +76,34 @@ def permutation(key, n: int, device="cpu"):
     return idx[torch.sort(bits, stable=True).indices]
 
 
+def randint(key, shape, minval: int, maxval: int, device="cpu"):
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) as int64
+    values: 32 random bits from each key of ``split(key)``, the high word
+    times a multiplier plus the low word, modulo the span, in JAX's wrapping
+    uint32 arithmetic.  A span of 0 or less gives ``minval``."""
+    lo_lim, hi_lim = -2**31, 2**31 - 1
+    if not (lo_lim <= minval <= hi_lim and lo_lim <= maxval <= hi_lim):
+        raise ValueError(f"randint bounds {minval}, {maxval} are not int32")
+    shape = tuple(shape)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
+    span = maxval - minval if maxval > minval else 1
+    # (2**16 mod span)**2 in uint32, mod span: 2**32 mod span up to a span
+    # of 2**16; above it the square wraps to 0 and only the low word counts
+    multiplier = ((2**16 % span) ** 2 & MASK) % span
+    offset = ((((higher % span) * multiplier) & MASK) + lower % span) & MASK
+    return minval + offset % span
+
+
 def _rotl(x, d):
     return ((x << d) | (x >> (32 - d))) & MASK
 
 
 def threefry2x32(key, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of the count words ``x1``, ``x2``
-    under ``key = (k1, k2)``; every word an int64 tensor (or int) in
-    [0, 2**32), broadcast together.  Returns the two output words."""
+    under ``key = (k1, k2)``, every word a Python int in [0, 2**32) (the key
+    derivations; bulk draws take :func:`_threefry2x32_i32`).  Returns the
+    two output words."""
     k1, k2 = key
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & MASK
@@ -96,9 +117,45 @@ def threefry2x32(key, x1, x2):
     return x1, x2
 
 
+def _i32(v):
+    """uint32 words (an int, or an int64 tensor in [0, 2**32)) as int32 with the same bits."""
+    if isinstance(v, torch.Tensor):
+        return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+    v &= MASK
+    return v - 2**32 if v >= 2**31 else v
+
+
+def _threefry2x32_i32(key, x1, x2):
+    """``threefry2x32`` on int32 tensors holding the uint32 words: int32 adds
+    wrap at 32 bits as uint32 adds do, and the right shift of a rotation is
+    masked to a logical one.  Half the bytes of the int64 form, no masks
+    after the adds, and in place: ~8x faster on the CPU."""
+    k1, k2 = key
+    ks = [_i32(k) for k in (k1, k2, k1 ^ k2 ^ _PARITY)]
+    x1 = x1 + ks[0]   # new tensors (broadcast against the key words): the
+    x2 = x2 + ks[1]   # updates below are in place on them
+    high = torch.empty_like(x2)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 += x2
+            torch.bitwise_right_shift(x2, 32 - r, out=high)
+            high &= (1 << r) - 1
+            x2 <<= r
+            x2 |= high
+            x2 ^= x1
+        x1 += ks[(i + 1) % 3]
+        x2 += ks[(i + 2) % 3] + _i32(i + 1)
+    return x1, x2
+
+
 def _counters(shape, device):
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    return idx >> 32, idx & MASK
+    """The (hi, lo) words of the 64-bit iota over ``shape``, as int32."""
+    n = math.prod(shape)
+    if n <= 2**31:   # hi is 0 and lo the iota itself
+        return (torch.zeros(n, dtype=torch.int32, device=device),
+                torch.arange(n, dtype=torch.int32, device=device))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return _i32(idx >> 32), _i32(idx & MASK)
 
 
 def _keys(seeds, device):
@@ -111,8 +168,8 @@ def _keys(seeds, device):
 
 def _bits_for_keys(key, shape, device):
     hi, lo = _counters(shape, device)
-    b1, b2 = threefry2x32(key, hi, lo)
-    return b1 ^ b2
+    b1, b2 = _threefry2x32_i32(key, hi, lo)
+    return (b1 ^ b2).to(torch.int64) & MASK
 
 
 def random_bits(key, shape, device="cpu"):

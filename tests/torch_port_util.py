@@ -111,3 +111,51 @@ def t(a):
 
 def hwio_to_oihw(w):
     return t(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+# ---------------------------------------------------------------------------
+# stage-1 GAN training at test size
+# ---------------------------------------------------------------------------
+
+# A first stage about as small as the GAN step takes (GroupNorm's 16 groups
+# set the encoder's width, a 4x4 latent allows 32^2 frames), one GRU layer, a
+# one-block-per-layer temporal disc on 2-frame crops, a one-layer patch disc.
+GAN_FS = dict(z_dim=8, spatial_size=32, max_frames=3, enc_channels=(16, 16, 16, 16),
+              dec_channels=(16, 8, 8, 8), n_gru_layers=1, min_spatial_size=4, motion_bias=True,
+              full_sequence=True)
+GAN_DS = dict(n_layers=1)
+GAN_DT = dict(spatial_size=32, sequence_length=2, layers=(1, 1, 1, 1))
+GAN_BATCH = 2
+
+
+def gan_specs(fs_mod, d_mod, **dt_overrides):
+    """(FirstStageSpec, PatchDiscSpec, TempDiscSpec) of the test size from a
+    package's ``models.first_stage`` and ``models.discriminators``."""
+    return (fs_mod.FirstStageSpec(**GAN_FS), d_mod.PatchDiscSpec(**GAN_DS),
+            d_mod.TempDiscSpec(**dict(GAN_DT, **dt_overrides)))
+
+
+def random_like(shapes, seed):
+    """A JAX-layout param tree of the shapes of ``shapes`` (a tree of arrays
+    or ShapeDtypeStructs) drawn with numpy: kernels N(0, 1/fan_in), norm
+    gains 1 + N(0, 0.01), other vectors N(0, 0.01), unit ``u`` vectors."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        shape = tuple(node.shape)
+        x = rng.standard_normal(shape)
+        if name == "u":
+            x = x / np.linalg.norm(x)
+        elif len(shape) >= 2 and name != "motion_bias":
+            x = x / np.sqrt(np.prod(shape[:-1]))
+        elif name == "gamma":
+            x = 1 + 0.1 * x
+        else:
+            x = 0.1 * x
+        return x.astype(np.float32)
+
+    return walk(shapes)
