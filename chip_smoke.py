@@ -51,29 +51,45 @@ Phases, each fatal on failure:
              served over HTTP by the port's server (SERVE_REQUESTS npy_u8
              requests, 2 processes x 8 connections).  Export seconds per
              bucket and file sizes are printed.
-  8. train   the training path: experiments/second_stage.train on iper_128
+  8. eval    the evaluation path on the slice's params at full width, B=8,
+             10 frames of 128^2 from the synthetic test split, each mode with
+             the launch counters zeroed just before it and read just after:
+             run_fvd (16 videos in two batches, K2 200 per batch), run_diversity
+             (3 samples of 8 examples, 200), run_samples (2 examples, 200),
+             the stage-2 validate (two val batches, 400); seconds by part
+             (sampling, I3D features, Frechet), peak memory and every
+             *_UNPRETRAINED value printed; the sampled videos' I3D features on
+             the card against the port's CPU I3D within I3D_TOL; then the
+             stage-2 trainer's top-k checkpoints at cut depth (iper_128's
+             width on one MaCowStep), find_best, and test --mode fvd on it.
+  9. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
              data (B=8, 10 frames of 128^2), torch-Adam (lr 1e-3 after 2
              warm-up steps, weight decay 1e-5), one warm-up step and 5 timed
-             steps; no kernel launches in a step.  Checked: finite losses and
+             steps of an epoch of 7 (so no validation: the eval phase
+             validates); no kernel launches in a step.  Checked: finite losses and
              grad norms, the float leaves moved, the frozen and integer leaves
              bitwise as initialised, last.npz (the whole train state, in a
              temporary directory) reloads to the trained params bitwise, and
              reverse(forward(x)) on the trained flow returns the motion latent
              within TRAIN_TOL with 200 K2 launches.
-  9. stage1  first-stage cVAE-GAN training: experiments/first_stage.train
+ 10. stage1  first-stage cVAE-GAN training: experiments/first_stage.train
              on iper_128's first stage at full width from JAX's init at seed
              0 (temporal disc ResNet-18 3D with its gradient penalty, patch
              disc, VGG19 perceptual loss, three optimizers), synthetic data
              (B=8, 10 frames of 128^2), f32, one warm-up step and
-             STAGE1_STEPS timed steps; no kernel launches in a step.
+             STAGE1_STEPS timed steps; no kernel launches in a step; the
+             epoch's end validated (SSIM, PSNR, LPIPS, FVD of one val batch)
+             with its top-k checkpoint.
              Checked: every loss finite, all three nets moved, the
              discriminators' u refreshed and the generator's as drawn,
-             last.npz reloads bitwise (u included), and the gradient penalty
-             on one example on the card against the CPU's.
- 10. report  a JSON line of the stage-1 phase, one of the train phase, one
-             of the distill and artifact phases, a JSON line of kernels, the
-             card's line, and last {"ok": true, "device": {...}}.
+             last.npz reloads bitwise (u included), test (find_best, then
+             validate) gives the trainer's validation again, and the gradient
+             penalty on one example on the card against the CPU's.
+ 11. report  a JSON line of the eval phase, one of the stage-1 phase, one of
+             the train phase, one of the distill and artifact phases, a JSON
+             line of kernels, the card's line, and last
+             {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
@@ -104,10 +120,14 @@ import torch  # noqa: E402
 from ipoke_tpu_torch import registry  # noqa: E402
 from ipoke_tpu_torch.ckpt import io  # noqa: E402
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, bridge_second_stage  # noqa: E402
-from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches  # noqa: E402
+from ipoke_tpu_torch.data.synthetic import (  # noqa: E402
+    SyntheticDataModule, from_data_config, train_batches)
+from ipoke_tpu_torch.eval import test_modes  # noqa: E402
 from ipoke_tpu_torch.experiments import first_stage as experiment_fs  # noqa: E402
 from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
 from ipoke_tpu_torch.flows import transformer  # noqa: E402
+from ipoke_tpu_torch.metrics import i3d  # noqa: E402
+from ipoke_tpu_torch.metrics.lpips import lpips_pretrained  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.models.discriminators import gradient_penalty, temp_disc_apply  # noqa: E402
 from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm  # noqa: E402
@@ -148,6 +168,18 @@ ARTIFACT_FLOW_BUCKETS = (8,)
 ARTIFACT_STUDENT_BUCKETS = (1, 2, 4, 8)
 STAGE1_STEPS = 4           # timed stage-1 GAN steps, after one warm-up step
 STAGE1_GP_TOL = 2e-4       # the gradient penalty on the card against the CPU's
+# I3D features of the sampled videos on the card against the port's CPU I3D
+# (oneDNN off) on the same videos: ~60 f32 convs deep, cuDNN against the CPU
+I3D_TOL = 1e-5             # relative to 1 + max|ref| (5.7e-7 measured on the H100)
+I3D_CPU_VIDEOS = 4         # videos the CPU recomputes (its I3D takes seconds per video)
+# the stage-1 test (find_best, then validate) against the trainer's own
+# validation of the same generator on the same card
+STAGE1_TEST_TOL = 1e-5     # relative
+EVAL_TESTING = {"seed": 42, "n_samples_fvd": 16, "n_samples_per_data_point": 3,
+                "n_samples_metrics": 8, "n_samples_vis": 2}
+# top-k and test at cut depth: iper_128's width (C=32, hidden 2048, h 128) on
+# one level of one MaCowStep, so a checkpoint saves in seconds
+TOPK_NUM_STEPS = [1]
 
 
 def log(msg):
@@ -698,6 +730,9 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
     and ``transformer.reverse(transformer.forward(x))`` on 'cuda_unit' returns
     the batch's motion latent within TRAIN_TOL with 200 K2 launches."""
     config = train_config(entry, steps=steps)
+    # the epoch is one batch longer than the run, so it never ends and nothing
+    # validates here: the eval phase validates, at a depth that saves in seconds
+    config["training"]["max_batches_per_epoch"] = 2 + steps
     spec = registry.build_specs(entry)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -807,7 +842,7 @@ def stage1_config(entry, b=BATCH, steps=STAGE1_STEPS):
                          "motion_bias": True, "deterministic": False, "spectral_norm": True},
         "training": {"lr": 2e-4, "weight_decay": 1e-5, "gamma": 0.98, "n_epochs": 1,
                      "max_batches_per_epoch": 1 + steps, "full_sequence": True,
-                     "w_vgg": 10, "w_l1": 10, "w_kl": 1e-7},
+                     "w_vgg": 10, "w_l1": 10, "w_kl": 1e-7, "max_val_batches": 1},
         "d_t": {"max_frames": 12, "gp_weight": 1.0},
         "d_s": {"gp_weight": 0.0, "n_examples": 16},
     }
@@ -910,6 +945,32 @@ def phase_stage1(device, card, entry, steps=STAGE1_STEPS, b=BATCH):
             f"({load_s:.1f} s)")
         if not ckpt_ok:
             raise SystemExit("stage1: last.npz does not reload to the trained nets")
+        # the epoch's end validated (one val batch) and kept its top-k checkpoint;
+        # test finds it and validates the best generator again
+        vals = run["val"]
+        val_keys = ("FVD-val", "ssim-val", "psnr-val", "lpips-val")
+        val = {k: vals[-1][k] for k in val_keys} if vals else {}
+        best = io.find_best(run["ckpt_dir"])
+        log(f"stage1 [{card}]: validation at step {[v['step'] for v in vals]}: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in val.items())
+            + f" ({sum(v['val_s'] for v in vals):.1f} s, top-k save {sum(v['save_s'] for v in vals):.1f}"
+            f" s); best {os.path.basename(best or '')}")
+        if [v["step"] for v in vals] != [1 + steps] or not all(np.isfinite(v) for v in val.values()):
+            raise SystemExit(f"stage1: the epoch's end was not validated as JAX's schedule says: {vals}")
+        test_timings = {}
+        _zero_counts()
+        t0 = time.perf_counter()
+        tested = experiment_fs.test(config, dirs, device=device, timings=test_timings)
+        test_s = time.perf_counter() - t0
+        n_test = _counts()
+        test_err = max(abs(tested[k] - val[k]) / (1 + abs(val[k])) for k in val_keys)
+        log(f"stage1 [{card}]: test (find_best, then validate on 1 batch of {b}): "
+            + ", ".join(f"{k} {tested[k]:.6g}" for k in val_keys)
+            + f"; {test_s:.1f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in test_timings.items())
+            + f"); max relative difference from the trainer's validation {test_err:.3g} (tolerance "
+            f"{STAGE1_TEST_TOL}); K1/K2 launches {n_test[0]}/{n_test[1]}")
+        if not test_err <= STAGE1_TEST_TOL or n_test != (0, 0):
+            raise SystemExit(f"stage1: test of the best checkpoint disagrees: {tested} vs {val}")
 
     example = next(train_batches(from_data_config(config["data"]), 1, seed=1))["images"]
     x = torch.from_numpy(example[:, :dt_spec.sequence_length])
@@ -931,8 +992,142 @@ def phase_stage1(device, card, entry, steps=STAGE1_STEPS, b=BATCH):
             "step_ms_first": step_ms[0], "step_ms_median": median, "step_ms": step_ms,
             "peak_gib": peak, "batch": b, "losses": {k: [h[k] for h in hist] for k in sorted(keys)},
             "moved": moved, "ckpt_gb": ckpt_gb, "gp_card": gp_card, "gp_cpu": gp_cpu,
-            "gp_abs_err": gp_err,
-            "launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]}}
+            "gp_abs_err": gp_err, "val": val, "val_s": sum(v["val_s"] for v in vals),
+            "test": tested, "test_s": test_s, "test_timings": test_timings,
+            "test_max_rel_diff": test_err,
+            "launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]},
+            "test_launches": {"mcf_inverse": n_test[0], "macow_unit_inverse": n_test[1]}}
+
+
+def eval_config(entry, b=BATCH):
+    """train_config's model and data at full width, with the eval modes'
+    testing section and two val batches per validation."""
+    config = train_config(entry, b)
+    config["testing"] = dict(EVAL_TESTING)
+    config["training"]["max_val_batches"] = 2
+    config["logging"] = {"n_fvd_samples": EVAL_TESTING["n_samples_fvd"], "n_saved_ckpt": 2}
+    return config
+
+
+def _mode(card, name, fn, want_k2, *args, **kw):
+    """One eval mode with its launch counts read around it: (result, host
+    seconds, timings by part, (K1, K2) launches)."""
+    timings = {}
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, timings=timings, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"eval [{card}]: {name}: {dt:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+        + f"); K1/K2 launches {n[0]}/{n[1]} (want 0/{want_k2}); peak {peak:.2f} GiB; "
+        + json.dumps({k: v for k, v in out.items() if not isinstance(v, str)}, default=float))
+    if n != (0, want_k2):
+        raise SystemExit(f"eval: {name} launched K1/K2 {n}, want 0/{want_k2}")
+    return out, {"s": dt, "timings": timings, "peak_gib": peak,
+                 "launches": {"mcf_inverse": n[0], "macow_unit_inverse": n[1]}}
+
+
+def phase_eval(device, card, entry, spec, params, tmp):
+    """The evaluation path on the slice's params (K2, 200 launches per
+    forward_sample call) at full width, B=8, 10 frames of 128^2 on the
+    synthetic test split: run_fvd (16 videos, two batches), run_diversity
+    (3 samples of 8 examples), run_samples (2 examples), the stage-2
+    validate (two val batches); the fake videos' I3D features on the card
+    against the port's CPU I3D on the first I3D_CPU_VIDEOS of them; then the
+    trainer's top-k checkpoints and ``test --mode fvd`` at cut depth
+    (TOPK_NUM_STEPS).  Every *_UNPRETRAINED value is printed.  Returns the
+    numbers."""
+    config = eval_config(entry)
+    dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
+    data = SyntheticDataModule(config["data"])
+    units = 4 * sum(spec.flow.num_steps)
+    out = {"i3d_pretrained": i3d.i3d().pretrained, "lpips_pretrained": lpips_pretrained()}
+    t_phase = time.perf_counter()
+    n_batches = EVAL_TESTING["n_samples_fvd"] // BATCH
+    fvd, out["run_fvd"] = _mode(card, "run_fvd", test_modes.run_fvd, units * n_batches,
+                                params, spec, config, data, dirs)
+    div, out["run_diversity"] = _mode(card, "run_diversity", test_modes.run_diversity, units,
+                                      params, spec, config, data, dirs)
+    smp, out["run_samples"] = _mode(card, "run_samples", test_modes.run_samples, units,
+                                    params, spec, config, data, dirs)
+    val, out["validate"] = _mode(card, "stage-2 validate", experiment.validate,
+                                 units * config["training"]["max_val_batches"],
+                                 params, spec, config, data)
+    key = "FVD" if out["i3d_pretrained"] else "FVD_UNPRETRAINED"
+    scores = {f"run_fvd {key}": fvd[key], "run_diversity div_vgg_cosine": div["div_vgg_cosine"],
+              "run_diversity div_mse": div["div_mse"], "run_diversity div_lpips": div["div_lpips"],
+              "validate FVD-val": val["FVD-val"], "validate flow_loss-val": val["flow_loss-val"]}
+    out["scores"] = scores
+    log(f"eval: I3D pretrained {out['i3d_pretrained']}, LPIPS pretrained {out['lpips_pretrained']} "
+        "(random seeded filters: every FVD and LPIPS below is a relative number, "
+        "*_UNPRETRAINED); " + ", ".join(f"{k} = {v:.9g}" for k, v in scores.items()))
+    if not all(np.isfinite(v) for v in scores.values()) or fvd["n"] != EVAL_TESTING["n_samples_fvd"]:
+        raise SystemExit(f"eval: a score is not finite, or run_fvd saw {fvd['n']} videos")
+    if smp["n_examples"] != EVAL_TESTING["n_samples_vis"] or div["n"] != EVAL_TESTING["n_samples_metrics"]:
+        raise SystemExit(f"eval: run_samples wrote {smp['n_examples']}, run_diversity scored {div['n']}")
+    pngs = [f for _, _, fs in os.walk(smp["dir"]) for f in fs if f.endswith(".png")]
+    if len(pngs) != EVAL_TESTING["n_samples_vis"] * EVAL_TESTING["n_samples_per_data_point"]:
+        raise SystemExit(f"eval: run_samples wrote {len(pngs)} enrollment PNGs")
+
+    # the sampled videos' I3D features: the card against the CPU (run_fvd's uint8 dump)
+    fake = np.load(os.path.join(fvd["npy_dir"], "fake_samples.npy"))[:I3D_CPU_VIDEOS]
+    videos = torch.from_numpy(fake.astype(np.float32) / 127.5 - 1.0)
+    feats_card = i3d.features(videos.to(device)).cpu()
+    t0 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        feats_cpu = i3d.features(videos)
+    cpu_s = time.perf_counter() - t0
+    i3d_err = float((feats_card - feats_cpu).abs().max() / (1 + feats_cpu.abs().max()))
+    out["i3d_card_vs_cpu"] = {"videos": I3D_CPU_VIDEOS, "max_rel_err": i3d_err, "cpu_s": cpu_s,
+                              "max_abs_feature": float(feats_cpu.abs().max())}
+    log(f"eval [{card}]: I3D features of {I3D_CPU_VIDEOS} sampled videos ({fake.shape[1]} frames of "
+        f"{fake.shape[2]}^2, resized to 224^2) on the card against the CPU ({cpu_s:.1f} s): max "
+        f"|diff| / (1 + max|ref|) {i3d_err:.3g} (tolerance {I3D_TOL}; max|ref| "
+        f"{out['i3d_card_vs_cpu']['max_abs_feature']:.4g})")
+    if not i3d_err <= I3D_TOL:
+        raise SystemExit(f"eval: the card's I3D features disagree with the CPU's: {i3d_err}")
+
+    # top-k checkpoints and test at cut depth
+    cut = eval_config(entry)
+    cut["architecture"]["num_steps"] = list(TOPK_NUM_STEPS)
+    cut["training"].update({"n_epochs": 1, "max_batches_per_epoch": 2, "val_every": 0.5,
+                            "max_val_batches": 1})
+    cut["testing"]["n_samples_fvd"] = BATCH
+    cut_spec = experiment.build_spec_from_config(cut)
+    cut_units = 4 * sum(cut_spec.flow.num_steps)
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = experiment.train(cut, dirs, device=device)
+    train_s = time.perf_counter() - t0
+    n_train = _counts()
+    vals = run["val"]
+    best = io.find_best(run["ckpt_dir"])
+    kept = sorted(f for f in os.listdir(run["ckpt_dir"]) if f.startswith("step="))
+    want_best = min(vals, key=lambda v: v["FVD-val"])
+    ckpt_mb = os.path.getsize(best) / 1e6
+    log(f"eval [{card}]: top-k at cut depth ({entry.name} width, num_steps {TOPK_NUM_STEPS}): 2 steps, "
+        f"validations at steps {[v['step'] for v in vals]} with FVD-val "
+        f"{[round(v['FVD-val'], 6) for v in vals]}; kept {kept}; find_best {os.path.basename(best)} "
+        f"({ckpt_mb:.0f} MB, top-k saves {sum(v['save_s'] for v in vals):.1f} s); the run "
+        f"{train_s:.1f} s, K1/K2 launches {n_train[0]}/{n_train[1]} (want 0/{cut_units * len(vals)})")
+    if [v["step"] for v in vals] != [1, 2, 2] or n_train != (0, cut_units * len(vals)):
+        raise SystemExit(f"eval: the cut-depth trainer did not validate on JAX's schedule: {vals}")
+    if os.path.basename(best) != f"step={want_best['step']}-FVD-val={want_best['FVD-val']:.3f}.npz":
+        raise SystemExit(f"eval: find_best gave {best}, not the least FVD-val {want_best}")
+    tested, out["test_fvd"] = _mode(card, "test --mode fvd (find_best, cut depth)", experiment.test,
+                                    cut_units, cut, dirs, mode="fvd", device=device)
+    if not np.isfinite(tested[key]):
+        raise SystemExit(f"eval: test --mode fvd gave {tested}")
+    out["topk"] = {"val": [{k: v[k] for k in ("step", "FVD-val", "flow_loss-val", "val_s", "save_s")}
+                           for v in vals], "kept": kept, "best": os.path.basename(best),
+                   "ckpt_mb": ckpt_mb, "train_s": train_s, "test": tested[key],
+                   "launches": {"mcf_inverse": n_train[0], "macow_unit_inverse": n_train[1]}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"eval: the phase took {out['phase_s']:.1f} s")
+    return out
 
 
 def ptxas_report(log_text):
@@ -996,6 +1191,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as tmp:
         art = phase_artifact(device, card, spec, params, student, Path(tmp))
     log(f"artifact: the phase took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        ev = phase_eval(device, card, entry, spec, params, tmp)
     del params
     train = phase_train(device, card, entry)
     stage1 = phase_stage1(device, card, entry)
@@ -1011,6 +1208,10 @@ def main():
              train_step_launches=train["launches"][name],
              train_roundtrip_launches=train["roundtrip_launches"][name],
              stage1_step_launches=stage1["launches"][name],
+             **{f"eval_{m}_launches": ev[m]["launches"][name]
+                for m in ("run_fvd", "run_diversity", "run_samples", "validate", "test_fvd")},
+             eval_topk_train_launches=ev["topk"]["launches"][name],
+             eval_stage1_test_launches=stage1["test_launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -1022,7 +1223,8 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
-    print(json.dumps({"stage1": stage1}), flush=True)
+    print(json.dumps({"eval": ev}, default=float), flush=True)
+    print(json.dumps({"stage1": stage1}, default=float), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -205,3 +205,27 @@ def eval_batches(dataset, batch_size: int):
     for start in range(0, len(dataset) - batch_size + 1, batch_size):
         samples = [dataset[i] for i in range(start, start + batch_size)]
         yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class SyntheticDataModule:
+    """The validation and test loaders of a config's ``data:`` section on
+    the synthetic dataset, as JAX's ``StaticDataModule.loader`` gives them
+    there: ``from_data_config(cfg, train=False)`` (seed ``data.seed + 1``)
+    in index order, ``data.batch_size`` per batch, the last partial batch
+    dropped.  Training draws from ``train_batches``."""
+
+    def __init__(self, data_cfg: dict):
+        name = data_cfg.get("dataset", "SyntheticDataset")
+        if name != "SyntheticDataset":
+            raise NotImplementedError(f"dataset {name!r}: the real datasets come with the data "
+                                      "path (ROADMAP queue 1 item 6)")
+        self.cfg = data_cfg
+        self.batch_size = int(data_cfg.get("batch_size", 8))
+        self._eval = None
+
+    def loader(self, split):
+        if split not in ("val", "test"):
+            raise ValueError(f"SyntheticDataModule.loader: split {split!r} is not 'val' or 'test'")
+        if self._eval is None:
+            self._eval = from_data_config(self.cfg, train=False)
+        return eval_batches(self._eval, self.batch_size)

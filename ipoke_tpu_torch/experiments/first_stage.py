@@ -3,16 +3,19 @@ of ``ipoke_tpu/experiments/first_stage.py``).
 
 ``specs_from_config`` reads the generator and both discriminator specs as
 the JAX experiment does; ``train`` trains the three nets on the synthetic
-dataset and saves ``last.npz`` in JAX's npz layout.  Validation by FVD,
-SSIM, PSNR and LPIPS waits for the metrics (ROADMAP queue 1 item 5), and
-the ``poke_vae`` baseline for ``models/variants`` (queue 1 item 8).
+dataset, validated at each epoch's end by FVD, SSIM, PSNR and LPIPS of the
+reconstructions, and keeps the top-k checkpoints by ``FVD-val`` and
+``last.npz`` in JAX's npz layout; ``test`` validates the best checkpoint.
+The ``poke_vae`` baseline waits for ``models/variants`` (ROADMAP queue 1
+item 8).
 
-    python -m ipoke_tpu_torch.experiments.first_stage train -c <cfg> -m <name> \
+    python -m ipoke_tpu_torch.experiments.first_stage {train,test} -c <cfg> -m <name> \
         [--max-steps N] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import time
@@ -22,9 +25,15 @@ import torch
 
 from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt import io
-from ipoke_tpu_torch.ckpt.jax_bridge import unbridge_gan_params
-from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches
-from ipoke_tpu_torch.experiments.second_stage import new_version_dir
+from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, unbridge_gan_params
+from ipoke_tpu_torch.data.synthetic import SyntheticDataModule, from_data_config, train_batches
+from ipoke_tpu_torch.eval.test_modes import Clock, params_device
+from ipoke_tpu_torch.experiments.base import MONITOR, fit
+from ipoke_tpu_torch.experiments.second_stage import new_version_dir, version_dir
+from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
+from ipoke_tpu_torch.metrics.image import psnr, ssim_video
+from ipoke_tpu_torch.metrics.lpips import lpips_video
+from ipoke_tpu_torch.models import first_stage
 from ipoke_tpu_torch.models.discriminators import PatchDiscSpec, TempDiscSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.train import first_stage as train_fs
@@ -78,25 +87,74 @@ def ckpt_tree(state: train_fs.GanTrainState, optimizers):
     return tree
 
 
-def train(config, dirs, device=None, max_steps=None):
-    """Train the generator and both discriminators as
-    ``FirstStageExperiment.train`` does, on the synthetic dataset, and save
-    ``last.npz`` in JAX's layout at the end.
-
-    The state from ``init_gan_state(prng_key(seed))``; the optimizers and
-    loss weights from the ``training`` section; the key of step i is
-    ``rng, sub = split(rng)``.  ``max_steps`` stops early.  Returns a dict:
-    ``state``, ``specs``, ``ckpt`` (the path of last.npz), ``init_s``,
-    ``save_s`` and ``history`` (per step: its metrics as floats and
-    ``step_s``, host seconds to a synchronised device).
-    """
-    device = resolve_device(device)
+def _check_baseline(config):
     if config.get("architecture", {}).get("baseline", "spade") != "spade":
         raise NotImplementedError("the poke_vae baseline waits for models/variants "
                                   "(ROADMAP queue 1 item 8)")
+
+
+@torch.no_grad()
+def validate(gen_params, fs_spec, config, datamod, timings=None):
+    """SSIM, PSNR, LPIPS and FVD of the reconstructions against frames
+    1..T-1 over the first ``training.max_val_batches`` batches of the val
+    split, as JAX's ``FirstStageExperiment.validate``: the spectral-normed
+    generator's ``forward`` on key ``split`` of ``prng_key(7)`` per batch,
+    FVD over ``logging.n_samples_fvd`` videos at most.  Returns
+    ``FVD-val``, ``ssim-val``, ``psnr-val`` and ``lpips-val``."""
+    device = params_device(gen_params)
+    clock = Clock(device, timings)
+    acc = FVDAccumulator(n_samples=int(config.get("logging", {}).get("n_samples_fvd", 1000)),
+                         device=device)
+    ssims, psnrs, lps = [], [], []
+    rng = prng.prng_key(7)
+    gen_sn = first_stage.materialize_spectral_norm(gen_params)
+    max_batches = int(config["training"].get("max_val_batches", 100))
+    for bi, raw in enumerate(datamod.loader("val")):
+        if bi >= max_batches:
+            break
+        x = torch.from_numpy(raw["images"]).to(device)
+        rng, sub = prng.split(rng)
+        t0 = time.perf_counter()
+        x_hat, _, _ = first_stage.forward(gen_sn, x, fs_spec, rng=sub)
+        clock.add("sampling_s", t0)
+        t0 = time.perf_counter()
+        tgt = x[:, 1:]
+        ssims.append(float(ssim_video(x_hat, tgt)))
+        psnrs.append(float(psnr(x_hat, tgt)))
+        lps.append(float(lpips_video(x_hat, tgt)))
+        clock.add("metrics_s", t0)
+        acc.update(tgt, x_hat)
+    clock.out["i3d_s"] = clock.out.get("i3d_s", 0.0) + acc.feature_s
+    out = {"FVD-val": acc.compute() if acc._real else float("nan"),
+           "ssim-val": float(np.mean(ssims)), "psnr-val": float(np.mean(psnrs)),
+           "lpips-val": float(np.mean(lps))}
+    clock.out["frechet_s"] = clock.out.get("frechet_s", 0.0) + acc.frechet_s
+    return out
+
+
+def train(config, dirs, device=None, max_steps=None):
+    """Train the generator and both discriminators as
+    ``FirstStageExperiment.train`` does, on the synthetic dataset, validated
+    (``validate``) at each epoch's end (``experiments/base.fit``; JAX's
+    stage 1 has no step schedule), each validation keeping the top
+    ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
+    a fresh version directory, in JAX's layout; ``last.npz`` is written at
+    the end too when the last step was not validated.
+
+    The state from ``init_gan_state(prng_key(seed))``; the optimizers and
+    loss weights from the ``training`` section; the key of step i is
+    ``rng, sub = split(rng)``.  ``max_steps`` stops early.  Returns a dict: ``state``,
+    ``specs``, ``ckpt`` (the path of last.npz), ``ckpt_dir``, ``init_s``,
+    ``save_s``, ``history`` (per step: its metrics as floats and ``step_s``,
+    host seconds to a synchronised device) and ``val`` (per validation:
+    ``step``, its metrics, ``val_s`` and ``save_s``).
+    """
+    device = resolve_device(device)
+    _check_baseline(config)
     cfg_t = config.setdefault("training", {})
     if config["general"].get("debug"):   # the JAX experiment's debug shrink
         cfg_t["max_batches_per_epoch"] = 10
+        cfg_t["max_val_batches"] = 2
     fs_spec, ds_spec, dt_spec, n_spatial = specs_from_config(config)
     seed = int(config["general"].get("seed", 42))
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 2000))
@@ -112,36 +170,78 @@ def train(config, dirs, device=None, max_steps=None):
         fs_spec, ds_spec, dt_spec, opts, w_vgg=float(cfg_t.get("w_vgg", 10.0)),
         w_l1=float(cfg_t.get("w_l1", 10.0)), w_kl=float(cfg_t.get("w_kl", 1e-7)),
         n_spatial_examples=n_spatial, remat=bool(cfg_t.get("remat", False)))
-    log.info("validation (FVD, SSIM, PSNR, LPIPS) waits for the metrics port (ROADMAP queue 1 "
-             "item 5): this run saves last.npz only")
     data_cfg = config["data"]
     batches = train_batches(from_data_config(data_cfg), int(data_cfg.get("batch_size", 8)),
                             seed=int(data_cfg.get("seed", 0)))
-    rng = prng.prng_key(seed)
-    total = int(cfg_t.get("n_epochs", 100)) * steps_per_epoch
-    total = total if max_steps is None else min(max_steps, total)
-    history = []
-    for _ in range(total):
+    datamod = SyntheticDataModule(data_cfg)
+    ckpt_dir = new_version_dir(dirs["ckpt"])
+    mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
+                               top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
+    run = {"state": state, "rng": prng.prng_key(seed)}
+    history, vals = [], []
+
+    def step():
         batch = {"images": torch.from_numpy(next(batches)["images"]).to(device)}
-        rng, sub = prng.split(rng)
+        run["rng"], sub = prng.split(run["rng"])
         sync()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, sub)
+        run["state"], metrics = step_fn(run["state"], batch, sub)
         sync()
         history.append(dict({k: float(v) for k, v in metrics.items()},
                             step_s=time.perf_counter() - t0))
-        log.info("step %d: %s", state.step, " ".join(
+        log.info("step %d: %s", run["state"].step, " ".join(
             f"{k}={history[-1][k]:.4f}" for k in ("loss", "loss_d_dt", "loss_d_ds", "l_rec")))
-    ckpt = os.path.join(new_version_dir(dirs["ckpt"]), "last.npz")
+
+    def run_validation(step_i):
+        t0 = time.perf_counter()
+        metrics = validate(run["state"].gen_params, fs_spec, config, datamod)
+        val_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.save_step(ckpt_tree(run["state"], opts), step_i, metrics[MONITOR])
+        vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
+        log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+
+    n_steps = fit(step, int(cfg_t.get("n_epochs", 100)), steps_per_epoch,
+                  validate=run_validation, max_steps=max_steps)
+    state = run["state"]
+    ckpt = os.path.join(ckpt_dir, "last.npz")
     t0 = time.perf_counter()
-    io.save(ckpt, ckpt_tree(state, opts), metadata={"step": state.step})
+    if not vals or vals[-1]["step"] != n_steps:
+        io.save(ckpt, ckpt_tree(state, opts), metadata={"step": state.step})
     return {"state": state, "specs": (fs_spec, ds_spec, dt_spec), "ckpt": ckpt,
-            "init_s": init_s, "save_s": time.perf_counter() - t0, "history": history}
+            "ckpt_dir": ckpt_dir, "init_s": init_s, "save_s": time.perf_counter() - t0,
+            "history": history, "val": vals}
+
+
+def load_generator(config, dirs, device=None):
+    """The generator of the run's best checkpoint (``find_best``), ``u``
+    kept; where no checkpoint holds one, the generator of
+    ``init_gan_state(prng_key(seed))``, as JAX's ``_load_state``."""
+    device = resolve_device(device)
+    fs_spec = specs_from_config(config)[0]
+    best = io.find_best(version_dir(dirs["ckpt"]))
+    if best:
+        tree, _ = io.load(best)
+        if "gen_params" in tree:
+            log.info("loaded the generator of %s", best)
+            return bridge_gan_params({"gen_params": tree["gen_params"]}, device)["gen_params"]
+    log.warning("no checkpoint holds a generator: JAX's init from seed %s",
+                config["general"].get("seed", 42))
+    key = prng.split(prng.prng_key(int(config["general"].get("seed", 42))), 3)[0]
+    return first_stage.init(key, fs_spec, device, spectral_u=True)
+
+
+def test(config, dirs, device=None, timings=None):
+    """``validate`` on the run's best generator (``load_generator``)."""
+    _check_baseline(config)
+    gen_params = load_generator(config, dirs, device)
+    return validate(gen_params, specs_from_config(config)[0], config,
+                    SyntheticDataModule(config["data"]), timings=timings)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m ipoke_tpu_torch.experiments.first_stage")
-    ap.add_argument("command", choices=["train"])
+    ap.add_argument("command", choices=["train", "test"])
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("--max-steps", type=int, default=None)
@@ -155,11 +255,16 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:   # no CUDA device and no --device
         raise SystemExit(f"{e}; on the command line: --device cpu") from None
+    if args.command == "test":
+        cfg, dirs = load_parameters(args.config, args.model, test_mode="fvd")
+        print(json.dumps(test(cfg, dirs, device=device)), flush=True)
+        return
     cfg, dirs = load_parameters(args.config, args.model)
     run = train(cfg, dirs, device=device, max_steps=args.max_steps)
     last = run["history"][-1] if run["history"] else {}
     print(f"trained {run['state'].step} steps on {device}; last loss "
-          f"{last.get('loss', float('nan')):.4f}; saved {run['ckpt']}", flush=True)
+          f"{last.get('loss', float('nan')):.4f}; {len(run['val'])} validations; "
+          f"checkpoints in {run['ckpt_dir']}", flush=True)
 
 
 if __name__ == "__main__":

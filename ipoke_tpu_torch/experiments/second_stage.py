@@ -6,14 +6,19 @@
 ``init_params`` takes the frozen components from the checkpoints the config
 names and draws the rest with ``models/second_stage.init`` from the config's
 seed, as JAX's ``_init_params`` does; ``load_for_serving`` lays the run's
-best checkpoint over them; ``train`` trains the flow.
+best checkpoint over them; ``train`` trains the flow, validated by FVD with
+the top-k checkpoints kept; ``test`` runs a test mode of
+``eval/test_modes`` on the best checkpoint.
 
     python -m ipoke_tpu_torch.experiments.second_stage train -c <cfg> -m <name> \
-        [--max-steps N] [--device cpu]
+        [--max-steps N] [--base_dir DIR] [--device cpu]
+    python -m ipoke_tpu_torch.experiments.second_stage test -c <cfg> -m <name> \
+        [--mode {samples,fvd,diversity}] [--base_dir DIR] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import time
@@ -24,7 +29,11 @@ import torch
 from ipoke_tpu_torch import registry, resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage, unbridge_second_stage
-from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches
+from ipoke_tpu_torch.data.synthetic import SyntheticDataModule, from_data_config, train_batches
+from ipoke_tpu_torch.eval import test_modes
+from ipoke_tpu_torch.experiments.base import MONITOR, fit
+from ipoke_tpu_torch.flows.loss import flow_loss
+from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
@@ -170,24 +179,66 @@ def _to_device(batch, device):
     return {k: torch.from_numpy(batch[k]).to(device) for k in ("images", "poke", "flow")}
 
 
+@torch.no_grad()
+def validate(params, spec, config, datamod, timings=None):
+    """``flow_loss-val`` and ``FVD-val`` over the first
+    ``training.max_val_batches`` batches of the val split, as JAX's
+    ``SecondStageExperiment.validate``: the density loss of each batch, and
+    one sample per example on key ``split`` of ``prng_key(123)`` against the
+    example's frames 1..T-1 (``logging.n_fvd_samples`` at most).  JAX's
+    latent scatter (``_log_latents``, a PNG) is not ported (ROADMAP queue 1
+    item 5).  ``timings`` as in ``eval/test_modes``."""
+    device = test_modes.params_device(params)
+    clock = test_modes.Clock(device, timings)
+    acc = FVDAccumulator(n_samples=int(config.get("logging", {}).get("n_fvd_samples", 1000)),
+                         device=device)
+    losses = []
+    rng = prng.prng_key(123)
+    max_batches = int(config["training"].get("max_val_batches", 100))
+    for bi, raw in enumerate(datamod.loader("val")):
+        if bi >= max_batches:
+            break
+        batch = _to_device(raw, device)
+        out, logdet, _ = second_stage.forward_density(params, spec, batch)
+        losses.append(float(flow_loss(out, logdet)[0]))
+        rng, sub = prng.split(rng)
+        t0 = time.perf_counter()
+        fake = second_stage.forward_sample(params, spec, batch, sub, n_samples=1)[0]
+        clock.add("sampling_s", t0)
+        acc.update(batch["images"][:, 1:], fake)
+    fvd_val = acc.compute() if acc._real else float("nan")
+    clock.out["i3d_s"] = clock.out.get("i3d_s", 0.0) + acc.feature_s
+    clock.out["frechet_s"] = clock.out.get("frechet_s", 0.0) + acc.frechet_s
+    log.info("validation: the latent scatter (_log_latents) is not ported (ROADMAP queue 1 item 5)")
+    return {"FVD-val": fvd_val, "flow_loss-val": float(np.mean(losses)) if losses else float("nan")}
+
+
 def train(config, dirs, device=None, max_steps=None):
     """Train the flow as ``SecondStageExperiment.train`` does, on the
-    synthetic dataset, and save ``last.npz`` in JAX's layout at the end.
+    synthetic dataset, validated on JAX's schedule: every ``val_every_steps
+    = max_batches_per_epoch * training.val_every`` steps and at each epoch's
+    end (``experiments/base.fit``).  Each validation keeps the top
+    ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
+    a fresh version directory, in JAX's layout (``CheckpointManager``);
+    ``last.npz`` is written at the end too when the last step was not
+    validated.
 
     Params from ``init_params``; ``make_optimizer`` from the ``training``
     section; ``min_acc_batch_size`` sets the microbatches; the key of step i
-    is ``rng, sub = split(rng)`` from ``prng_key(seed)``.  Validation by FVD
-    waits for the metrics (ROADMAP queue 1 item 6), so no top-k checkpoints
-    are kept, only ``last.npz``.  ``max_steps`` stops early.
+    is ``rng, sub = split(rng)`` from ``prng_key(seed)``.  ``max_steps``
+    stops early.
 
     Returns a dict: ``state``, ``frozen``, ``spec``, ``ckpt`` (the path of
-    last.npz), ``init_s``, ``save_s`` and ``history`` (per step: its metrics
-    as floats and ``step_s``, host seconds to a synchronised device).
+    last.npz), ``ckpt_dir``, ``init_s``, ``save_s``, ``history`` (per step:
+    its metrics as floats and ``step_s``, host seconds to a synchronised
+    device) and ``val`` (per validation: ``step``, its metrics, ``val_s``
+    and ``save_s``).
     """
     device = resolve_device(device)
     cfg_t = config.setdefault("training", {})
     if config["general"].get("debug"):   # the JAX experiment's debug shrink
         cfg_t["max_batches_per_epoch"] = 10
+        cfg_t["max_val_batches"] = 2
     spec = build_spec_from_config(config)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
@@ -207,7 +258,6 @@ def train(config, dirs, device=None, max_steps=None):
         use_adamw=bool(cfg_t.get("use_adamw", False)),
         amsgrad=bool(cfg_t.get("amsgrad", False)),
     )
-    state = train_ss.init_state(trainable, opt)
     data_cfg = config["data"]
     batch_size = int(data_cfg.get("batch_size", 8))
     min_acc = int(cfg_t.get("min_acc_batch_size", 0))
@@ -216,33 +266,66 @@ def train(config, dirs, device=None, max_steps=None):
         spec, frozen, opt, spatial_mean=bool(cfg_t.get("spatial_mean", False)),
         logdet_weight=float(cfg_t.get("logdet_weight", 1.0)), n_microbatches=n_micro)
     batches = train_batches(from_data_config(data_cfg), batch_size, seed=int(data_cfg.get("seed", 0)))
-    rng = prng.prng_key(_seed(config))
-    total = n_epochs * steps_per_epoch if max_steps is None else min(max_steps, n_epochs * steps_per_epoch)
-    history = []
-    for _ in range(total):
+    datamod = SyntheticDataModule(data_cfg)
+    ckpt_dir = new_version_dir(dirs["ckpt"])
+    mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
+                               top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
+    run = {"state": train_ss.init_state(trainable, opt), "rng": prng.prng_key(_seed(config))}
+    history, vals = [], []
+
+    def step():
         batch = _to_device(next(batches), device)
-        rng, sub = prng.split(rng)
+        run["rng"], sub = prng.split(run["rng"])
         sync()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, sub)
+        run["state"], metrics = step_fn(run["state"], batch, sub)
         sync()
         history.append(dict({k: float(v) for k, v in metrics.items()},
                             step_s=time.perf_counter() - t0))
-        log.info("step %d: %s", state.step, " ".join(
+        log.info("step %d: %s", run["state"].step, " ".join(
             f"{k}={v:.4f}" for k, v in list(history[-1].items())[:4]))
-    ckpt = os.path.join(new_version_dir(dirs["ckpt"]), "last.npz")
+
+    def run_validation(step_i):
+        t0 = time.perf_counter()
+        metrics = validate({**frozen, **run["state"].params}, spec, config, datamod)
+        val_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.save_step(ckpt_tree(run["state"], opt, spec), step_i, metrics[MONITOR])
+        vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
+        log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+
+    n_steps = fit(step, n_epochs, steps_per_epoch, validate=run_validation,
+                  val_every_steps=int(steps_per_epoch * float(cfg_t.get("val_every", 1.0))),
+                  max_steps=max_steps)
+    state = run["state"]
+    ckpt = os.path.join(ckpt_dir, "last.npz")
     t0 = time.perf_counter()
-    io.save(ckpt, ckpt_tree(state, opt, spec), metadata={"step": state.step})
-    return {"state": state, "frozen": frozen, "spec": spec, "ckpt": ckpt, "init_s": init_s,
-            "save_s": time.perf_counter() - t0, "history": history}
+    if not vals or vals[-1]["step"] != n_steps:
+        io.save(ckpt, ckpt_tree(state, opt, spec), metadata={"step": state.step})
+    return {"state": state, "frozen": frozen, "spec": spec, "ckpt": ckpt, "ckpt_dir": ckpt_dir,
+            "init_s": init_s, "save_s": time.perf_counter() - t0, "history": history, "val": vals}
+
+
+def test(config, dirs, mode=None, device=None, timings=None):
+    """The test mode ``mode`` (default: the config's ``general.test``, else
+    ``samples``) of ``eval/test_modes`` on the run's best checkpoint over
+    the init (``load_for_serving``), on the synthetic test split."""
+    mode = mode or config["general"].get("test") or "samples"
+    fn = test_modes.mode_fn(mode)
+    params, spec = load_for_serving(config, dirs, device)
+    return fn(params, spec, config, SyntheticDataModule(config["data"]), dirs, timings=timings)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m ipoke_tpu_torch.experiments.second_stage")
-    ap.add_argument("command", choices=["train"])
+    ap.add_argument("command", choices=["train", "test"])
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--mode", default="samples", choices=list(test_modes.ALL_MODES),
+                    help="test mode (test only)")
+    ap.add_argument("--base_dir", default=None,
+                    help="run tree root (default: the config's general.base_dir, else logs)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' only when asked)")
     args = ap.parse_args(argv)
@@ -253,11 +336,18 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:   # no CUDA device and no --device
         raise SystemExit(f"{e}; on the command line: --device cpu") from None
-    cfg, dirs = load_parameters(args.config, args.model)
+    if args.command == "test":
+        test_modes.mode_fn(args.mode)   # an unported mode raises before any loading
+        cfg, dirs = load_parameters(args.config, args.model, base_dir=args.base_dir,
+                                    test_mode=args.mode)
+        print(json.dumps(test(cfg, dirs, mode=args.mode, device=device), default=float), flush=True)
+        return
+    cfg, dirs = load_parameters(args.config, args.model, base_dir=args.base_dir)
     run = train(cfg, dirs, device=device, max_steps=args.max_steps)
     last = run["history"][-1] if run["history"] else {}
     print(f"trained {run['state'].step} steps on {device}; last flow_loss "
-          f"{last.get('flow_loss', float('nan')):.4f}; saved {run['ckpt']}", flush=True)
+          f"{last.get('flow_loss', float('nan')):.4f}; {len(run['val'])} validations; "
+          f"checkpoints in {run['ckpt_dir']}", flush=True)
 
 
 if __name__ == "__main__":

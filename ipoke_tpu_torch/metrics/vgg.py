@@ -1,17 +1,22 @@
-"""VGG-19 features and the perceptual (VGG) loss of first-stage training
-(counterpart of ``ipoke_tpu/metrics/vgg.py``; the reference's VGGLoss).
+"""VGG-19/16 features: the perceptual (VGG) loss of first-stage training,
+the LPIPS backbone and the VGG-cosine diversity score (counterpart of
+``ipoke_tpu/metrics/vgg.py``; the reference's VGGLoss, LPIPS and
+utils/metrics.py:20-58).
 
-Pretrained filters are read from ``$IPOKE_WEIGHTS/vgg19_features.npz`` (else
-``logs/weights/``) as the JAX package reads them: torchvision ``features``
-conv weights as ``conv{idx}/w`` (OIHW) and ``conv{idx}/b``.  Without the
-file the extractor runs with the JAX package's seeded filters: the same numpy
-draw (``default_rng(0)``, HWIO, scale ``sqrt(2 / (9 c_in))``), kept here as
-the port's own copy, so both packages hold identical filters.  Those are fine
-for tests and timing, not for reference-parity loss values.
+Pretrained filters are read from ``$IPOKE_WEIGHTS/<name>.npz`` (else
+``logs/weights/``; ``vgg19_features`` / ``vgg16_features``) as the JAX
+package reads them: torchvision ``features`` conv weights as ``conv{idx}/w``
+(OIHW) and ``conv{idx}/b``.  Without the file the extractor runs with the JAX
+package's seeded filters: the same numpy draw (``default_rng(0)``, HWIO,
+scale ``sqrt(2 / (9 c_in))``, in the network's own layout), kept here as the
+port's own copy, so both packages hold identical filters.  Those are fine
+for tests, timing and relative diversity scores, not for reference-parity
+loss or LPIPS values.
 """
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -27,8 +32,22 @@ VGG19_LAYOUT = [
     (19, 256, 512), (21, 512, 512), (23, 512, 512), (25, 512, 512), "M",
     (28, 512, 512), (30, 512, 512), (32, 512, 512), (34, 512, 512), "M",
 ]
+VGG16_LAYOUT = [
+    (0, 3, 64), (2, 64, 64), "M",
+    (5, 64, 128), (7, 128, 128), "M",
+    (10, 128, 256), (12, 256, 256), (14, 256, 256), "M",
+    (17, 256, 512), (19, 512, 512), (21, 512, 512), "M",
+    (24, 512, 512), (26, 512, 512), (28, 512, 512), "M",
+]
 # relu indices (torchvision numbering) after which the reference taps its slices
 VGG19_SLICE_TAPS = (1, 6, 11, 20, 29)
+VGG16_LPIPS_TAPS = (3, 8, 15, 22, 29)      # relu1_2 .. relu5_3
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# frames per VGG16 pass of the diversity features and LPIPS: bounds the
+# activations' memory on long sample sets; every op is per frame
+FRAME_CHUNK = 256
 
 
 def _weights_dir():
@@ -76,12 +95,14 @@ def features(params, x, layout, taps):
     return feats
 
 
-class VGG19:
-    """The VGG19 filters of the perceptual loss, uploaded once per device
-    (OIHW, f32) and kept for the life of the object."""
+class VGG:
+    """A VGG's filters, uploaded once per device (OIHW, f32) and kept for
+    the life of the object; ``features`` taps the network's slices."""
+
+    name, layout, taps = None, None, None
 
     def __init__(self):
-        self.host, self.pretrained = load_or_init("vgg19_features", VGG19_LAYOUT)
+        self.host, self.pretrained = load_or_init(self.name, self.layout)
         self._on = {}
 
     def params(self, device):
@@ -94,7 +115,32 @@ class VGG19:
         return self._on[device]
 
     def features(self, x):
-        return features(self.params(x.device), x, VGG19_LAYOUT, VGG19_SLICE_TAPS)
+        return features(self.params(x.device), x, self.layout, self.taps)
+
+
+class VGG19(VGG):
+    """The perceptual loss's VGG19, tapped at relu1_1 .. relu5_1."""
+
+    name, layout, taps = "vgg19_features", VGG19_LAYOUT, VGG19_SLICE_TAPS
+
+
+class VGG16(VGG):
+    """LPIPS's and the diversity score's VGG16, tapped at relu1_2 .. relu5_3."""
+
+    name, layout, taps = "vgg16_features", VGG16_LAYOUT, VGG16_LPIPS_TAPS
+
+
+@lru_cache(maxsize=1)
+def vgg16() -> VGG16:
+    """The process's one VGG16 (JAX's ``_cached("vgg16_features")``)."""
+    return VGG16()
+
+
+def normalize_m11_to_imagenet(x):
+    """[-1, 1] RGB (..., 3) -> imagenet-normalised."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return ((x + 1.0) * 0.5 - mean) / std
 
 
 def vgg_loss(vgg: VGG19, x, y):
@@ -104,3 +150,16 @@ def vgg_loss(vgg: VGG19, x, y):
     imagenet-normalised."""
     fx, fy = vgg.features(x), vgg.features(y)
     return sum(torch.mean((a - b).abs()) for a, b in zip(fx, fy)) / len(fx)
+
+
+def vgg16_diversity_features(x):
+    """(N, H, W, 3) in [-1, 1] -> (N, 1472): each VGG16 slice's spatial mean,
+    concatenated and unit-normalised (the diversity score's cosine
+    features), FRAME_CHUNK frames per pass."""
+    net = vgg16()
+    out = []
+    for i in range(0, x.shape[0], FRAME_CHUNK):
+        feats = net.features(normalize_m11_to_imagenet(x[i:i + FRAME_CHUNK]))
+        out.append(torch.cat([f.mean(dim=(1, 2)) for f in feats], dim=-1))
+    cat = torch.cat(out)
+    return cat / (torch.linalg.vector_norm(cat, dim=-1, keepdim=True) + 1e-8)

@@ -1,10 +1,14 @@
-"""Video writing (the port's copy of ``ipoke_tpu/utils/video.py``'s
-``to_uint8`` and ``save_video``): cv2's MP4V writer where cv2 is installed,
-else the frames as ``.npy``; frames come in as [-1, 1] float RGB or uint8.
+"""Video and image writing (the port's copy of ``ipoke_tpu/utils/video.py``'s
+``to_uint8``, ``save_video``, ``save_image`` and ``enrollment``): videos by
+cv2's MP4V writer where cv2 is installed, else as ``.npy``; images as PNG
+written with the standard library (``zlib`` + ``struct``), so no image
+package is needed.  Frames come in as [-1, 1] float RGB or uint8.
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -36,3 +40,43 @@ def save_video(frames, path, fps=3):
         alt = os.path.splitext(path)[0] + ".npy"
         np.save(alt, arr)
         return alt
+
+
+_PNG_COLOR_TYPES = {1: 0, 3: 2, 4: 6}   # channels -> grey, RGB, RGBA
+
+
+def _png_chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def save_image(frame, path):
+    """frame: (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) in [-1, 1] or uint8
+    -> an 8-bit PNG at ``path`` (grey, RGB or RGBA, as PIL's ``fromarray``
+    writes it).  Any other shape raises.  Returns ``path``."""
+    arr = to_uint8(frame)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.ndim != 3 or arr.shape[-1] not in _PNG_COLOR_TYPES:
+        raise ValueError(f"save_image: a frame of shape {arr.shape} is not an image")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    h, w, c = arr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(arr).reshape(h, w * c)],
+                          axis=1)   # filter byte 0 (none) before every row
+    png = (b"\x89PNG\r\n\x1a\n"
+           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0))
+           + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)
+    return path
+
+
+def enrollment(frames, pad=2):
+    """A clip as one horizontal film strip, white between frames."""
+    arr = to_uint8(frames)
+    t, h, w, c = arr.shape
+    out = np.full((h, t * (w + pad) - pad, c), 255, np.uint8)
+    for i, f in enumerate(arr):
+        out[:, i * (w + pad): i * (w + pad) + w] = f
+    return out

@@ -391,3 +391,62 @@ def test_direct_distill_step_on_the_card(cuda):
     assert float(logs["teacher_finite_frac"]) == 1.0
     moved = [not torch.equal(a, b) for a, b in zip(start, float_leaves(state["params"]))]
     assert sum(moved) > len(moved) // 2
+
+
+METRIC_TOL = 1e-4   # cuDNN's f32 convs (TF32 off) against the CPU's, relative to 1 + max|ref|
+
+
+def _rel(got, ref):
+    return float((got.detach().cpu().double() - ref.double()).abs().max() / (1 + ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_metrics_on_the_card_match_the_cpu(cuda):
+    """I3D features, LPIPS and SSIM/PSNR of the same videos on the card and on
+    the CPU (oneDNN off, whose f32 convs round coarser)."""
+    from ipoke_tpu_torch.metrics import i3d, image, lpips
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.tanh(torch.randn(2, 5, 48, 48, 3, generator=gen))
+    b = (a + 0.3 * torch.randn(a.shape, generator=gen)).clamp(-1, 1)
+    with torch.backends.mkldnn.flags(enabled=False):
+        ref = {"i3d": i3d.features(a), "lpips": lpips.lpips_video(a, b),
+               "ssim": image.ssim_video(a, b), "psnr": image.psnr(a, b)}
+    got = {"i3d": i3d.features(a.to(cuda)), "lpips": lpips.lpips_video(a.to(cuda), b.to(cuda)),
+           "ssim": image.ssim_video(a.to(cuda), b.to(cuda)), "psnr": image.psnr(a.to(cuda), b.to(cuda))}
+    for k, r in ref.items():
+        assert got[k].device.type == "cuda" and got[k].shape == r.shape
+        assert _rel(got[k], r) <= METRIC_TOL, (k, _rel(got[k], r))
+
+
+@pytest.mark.gpu
+def test_fvd_run_on_the_card(cuda, tmp_path):
+    """``test --mode fvd`` of a tiny second stage on the card, end to end:
+    K2 in every sampling call, the score finite, its features on the card,
+    the score within 1e-3 relative of the same run on the CPU."""
+    import json
+
+    import yaml
+
+    from ipoke_tpu_torch.experiments import second_stage as experiment
+
+    config = {
+        "general": {"experiment": "e", "seed": 0, "base_dir": str(tmp_path / "logs")},
+        "first_stage": {"spec": {"z_dim": 16, "ENC_M_channels": [16] * 4, "dec_channels": [16] * 4,
+                                 "n_gru_layers": 2, "min_spatial_size": 8}},
+        "poke_embedder": {"spec": {"nf_max": 16}}, "conditioner": {"spec": {"nf_max": 16}},
+        "data": {"spatial_size": [64, 64], "max_frames": 3, "n_examples": 8, "batch_size": 4},
+        "architecture": {"flow_mid_channels_factor": 2, "num_steps": [1, 1]},
+        "testing": {"n_samples_fvd": 8, "seed": 3},
+    }
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(config))
+    scores = {}
+    for dev in (cuda, "cpu"):
+        n0 = k2.macow_unit_inverse.launches
+        experiment.main(["test", "-c", str(path), "-m", "m", "--mode", "fvd", "--device", str(dev)])
+        with open(tmp_path / "logs" / "e" / "generated" / "m" / "metrics" / "fvd.json") as f:
+            scores[str(dev)] = json.load(f)["FVD_UNPRETRAINED"]
+        assert k2.macow_unit_inverse.launches - n0 == (2 * 2 * 4 if dev == cuda else 0)
+    card, cpu = scores[str(cuda)], scores["cpu"]
+    assert card > 0 and abs(card - cpu) <= 1e-3 * cpu, scores

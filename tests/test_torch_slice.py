@@ -1,6 +1,8 @@
 """The port's sampling slice, ``models/second_stage.forward_sample``, against
-the JAX package on the CPU: a tiny second stage initialised by JAX (flow
-output gains set non-zero so no coupling is the identity), carried across by
+the JAX package on the CPU: a tiny second stage drawn from JAX's key by the
+port's ``init`` (JAX's numbers, tests/test_torch_init.py; JAX's own eager
+init of it takes ~13 s here), in JAX's layout with the flow output gains set
+non-zero so no coupling is the identity, carried back by
 ``ckpt/jax_bridge``, then the same numpy z and batch through both."""
 import dataclasses
 import math
@@ -18,7 +20,7 @@ from ipoke_tpu.models import second_stage as jss
 from ipoke_tpu.models.encoders import WrapperSpec
 from ipoke_tpu.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch import registry
-from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
+from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage, unbridge_second_stage
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.utils import prng, synth
 from torch_port_util import CPU, np_tree, port_second_stage_spec, set_wn_gains, t
@@ -49,7 +51,9 @@ def _jax_spec(decode_dtype="f32"):
 @pytest.fixture(scope="module")
 def model():
     jspec = _jax_spec()
-    p = jss.init(jax.random.PRNGKey(0), jspec)
+    spec = port_second_stage_spec(jspec, mcf_backend="cuda_unit")
+    p = jax.tree_util.tree_map(jnp.asarray, unbridge_second_stage(
+        second_stage.init(prng.prng_key(0), spec, device=CPU), spec))
     p = dict(p, flow=set_wn_gains(p["flow"], 0.05))
     rng = np.random.default_rng(1)
     batch = {"images": rng.standard_normal((B, T, S, S, 3)).astype(np.float32),
@@ -68,25 +72,43 @@ def _within(out, ref, bounds):
     assert diff.max() < bounds[0] and diff.mean() < bounds[1], (diff.max(), diff.mean())
 
 
+# JAX's sampler jitted, as JAX's own test modes run it: one compile per
+# spec and sample count takes about half the time of its eager dispatch here
+_jax_forward_sample = jax.jit(jss.forward_sample, static_argnums=(1,), static_argnames=("n_samples",))
+
+
 def _jax_sample(p, jspec, batch, z):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    return np.asarray(jss.forward_sample(p, jspec, jb, None, z=jnp.asarray(z)))
+    return np.asarray(_jax_forward_sample(p, jspec, jb, None, z=jnp.asarray(z)))
 
 
 def _port_sample(pt, spec, batch, z):
     return second_stage.forward_sample(pt, spec, {k: t(v) for k, v in batch.items()}, z=t(z)).numpy()
 
 
+def _z_bad(z):
+    """Example 1 gets a non-finite draw: the masks must agree, example 0 stays finite."""
+    z_bad = z.copy()
+    z_bad[0, 1, 3, 3, 5] = np.inf
+    return z_bad
+
+
+@pytest.fixture(scope="module")
+def jax_f32_video(model):
+    """JAX's f32 video on ``_z_bad``: the f32 case's reference and the bf16
+    case's f32 bound, computed once."""
+    p, jspec, batch, z = model
+    return _jax_sample(p, _with_decode(jspec, "f32"), batch, _z_bad(z))
+
+
 @pytest.mark.parametrize("decode_dtype", ["f32", "bf16"])
-def test_forward_sample_matches_jax(model, decode_dtype):
+def test_forward_sample_matches_jax(model, jax_f32_video, decode_dtype):
     p, jspec, batch, z = model
     jspec = _with_decode(jspec, decode_dtype)
     spec = port_second_stage_spec(jspec, mcf_backend="cuda_unit")
     pt = bridge_second_stage(np_tree(p), spec, device=CPU)
-    # example 1 gets a non-finite draw: the masks must agree, example 0 stays finite
-    z_bad = z.copy()
-    z_bad[0, 1, 3, 3, 5] = np.inf
-    ref = _jax_sample(p, jspec, batch, z_bad)
+    z_bad = _z_bad(z)
+    ref = jax_f32_video if decode_dtype == "f32" else _jax_sample(p, jspec, batch, z_bad)
     out = _port_sample(pt, spec, batch, z_bad)
     assert out.shape == ref.shape == (1, B, T - 1, S, S, 3)
     np.testing.assert_array_equal(np.isfinite(out), np.isfinite(ref))
@@ -95,8 +117,7 @@ def test_forward_sample_matches_jax(model, decode_dtype):
     if decode_dtype == "f32":
         np.testing.assert_allclose(out[fin], ref[fin], rtol=F32_TOL, atol=F32_TOL)
     else:
-        ref_f32 = _jax_sample(p, _with_decode(jspec, "f32"), batch, z_bad)
-        _within(out[fin], ref_f32[fin], BF16_VS_F32)
+        _within(out[fin], jax_f32_video[fin], BF16_VS_F32)
         _within(out[fin], ref[fin], BF16_VS_BF16)
     # the draw from a key: same shape, finite, and fixed by the key
     tb = {k: t(v) for k, v in batch.items()}
@@ -117,7 +138,7 @@ def test_forward_sample_draws_jax_z(model, n_samples):
     pt = bridge_second_stage(np_tree(p), spec, device=CPU)
     seed = 2**32 - 3
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    ref = np.asarray(jss.forward_sample(p, jspec, jb, jax.random.PRNGKey(np.uint32(seed)),
+    ref = np.asarray(_jax_forward_sample(p, jspec, jb, jax.random.PRNGKey(np.uint32(seed)),
                                         n_samples=n_samples))
     out = second_stage.forward_sample(pt, spec, {k: t(v) for k, v in batch.items()},
                                       rng=prng.prng_key(seed), n_samples=n_samples).numpy()
