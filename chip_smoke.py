@@ -52,7 +52,8 @@ Phases, each fatal on failure:
              requests, 2 processes x 8 connections).  Export seconds per
              bucket and file sizes are printed.
   8. eval    the evaluation path on the slice's params at full width, B=8,
-             10 frames of 128^2 from the synthetic test split, each mode with
+             10 frames of 128^2 from the synthetic test split (the port's
+             StaticDataModule, as every phase's data), each mode with
              the launch counters zeroed just before it and read just after:
              run_fvd (16 videos in two batches, K2 200 per batch), run_diversity
              (3 samples of 8 examples, 200), run_samples (2 examples, 200),
@@ -64,7 +65,8 @@ Phases, each fatal on failure:
              width on one MaCowStep), find_best, and test --mode fvd on it.
   9. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
-             data (B=8, 10 frames of 128^2), torch-Adam (lr 1e-3 after 2
+             data in JAX's training order with zero pokes (B=8, 10 frames of
+             128^2), torch-Adam (lr 1e-3 after 2
              warm-up steps, weight decay 1e-5), one warm-up step and 5 timed
              steps of an epoch of 7 (so no validation: the eval phase
              validates); no kernel launches in a step.  Checked: finite losses and
@@ -77,7 +79,8 @@ Phases, each fatal on failure:
              on iper_128's first stage at full width from JAX's init at seed
              0 (temporal disc ResNet-18 3D with its gradient penalty, patch
              disc, VGG19 perceptual loss, three optimizers), synthetic data
-             (B=8, 10 frames of 128^2), f32, one warm-up step and
+             in JAX's order with zero pokes (B=8, 10 frames of 128^2), f32,
+             one warm-up step and
              STAGE1_STEPS timed steps; no kernel launches in a step; the
              epoch's end validated (SSIM, PSNR, LPIPS, FVD of one val batch)
              with its top-k checkpoint.
@@ -86,10 +89,26 @@ Phases, each fatal on failure:
              last.npz reloads bitwise (u included), test (find_best, then
              validate) gives the trainer's validation again, and the gradient
              penalty on one example on the card against the CPU's.
- 11. report  a JSON line of the eval phase, one of the stage-1 phase, one of
-             the train phase, one of the distill and artifact phases, a JSON
-             line of kernels, the card's line, and last
-             {"ok": true, "device": {...}}.
+ 11. data    the data path on a prepared iPER-layout tree written with
+             data/tree (4 videos x 30 frames at 256^2, PNG rows in all five
+             filters, so the port's PNG decode and LANCZOS resize run): the
+             loader (StaticDataModule on IperDataset, 10 frames of 128^2,
+             B=8, 4 workers, zero pokes, augment off and on, DATA_BATCHES
+             batches each through device_prefetch) in batches/s, samples/s
+             and zero-poke share, and one batch's pinned H2D copy; the image
+             AE (conditioner width, variational) and the poke AE (poke
+             embedder width) at B=16, 1 + AE_STEPS steps each: step ms, the
+             disc/gen split by CUDA events, peak memory, every loss and
+             d_weight; one step of each on the card against the CPU (logs in
+             f32, gradients in f64, ENC_TOL); each trainer through
+             ipoke_tpu_torch.main with a validation (lpips-val) and its top-k
+             save, the image AE's test through python -m
+             ipoke_tpu_torch.main; then 2 stage-2 steps through main on the
+             tree at cut depth.  No kernel launches on any of these paths.
+ 12. report  a JSON line of the data phase, one of the eval phase, one of
+             the stage-1 phase, one of the train phase, one of the distill
+             and artifact phases, a JSON line of kernels, the card's line,
+             and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
 limit printed beside it.
 """
@@ -101,6 +120,7 @@ import json
 import os
 import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import threading
@@ -120,8 +140,11 @@ import torch  # noqa: E402
 from ipoke_tpu_torch import registry  # noqa: E402
 from ipoke_tpu_torch.ckpt import io  # noqa: E402
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, bridge_second_stage  # noqa: E402
-from ipoke_tpu_torch.data.synthetic import (  # noqa: E402
-    SyntheticDataModule, from_data_config, train_batches)
+from ipoke_tpu_torch import main as port_main  # noqa: E402
+from ipoke_tpu_torch.data.datamodule import StaticDataModule  # noqa: E402
+from ipoke_tpu_torch.data.loader import device_prefetch, to_device  # noqa: E402
+from ipoke_tpu_torch.data.tree import write_tree  # noqa: E402
+from ipoke_tpu_torch.experiments import encoders as experiment_enc  # noqa: E402
 from ipoke_tpu_torch.eval import test_modes  # noqa: E402
 from ipoke_tpu_torch.experiments import first_stage as experiment_fs  # noqa: E402
 from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
@@ -138,6 +161,7 @@ from ipoke_tpu_torch.serve import artifact, loadtest  # noqa: E402
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
 from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
 from ipoke_tpu_torch.train import distill  # noqa: E402
+from ipoke_tpu_torch.train import encoders as train_enc  # noqa: E402
 from ipoke_tpu_torch.train import first_stage as train_fs  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
@@ -702,8 +726,11 @@ def train_config(entry, b=BATCH, steps=TRAIN_STEPS):
         "first_stage": {"registry": entry.name},
         "poke_embedder": {"spec": dict(wrapper, nf_max=entry.nf_max_poke)},
         "conditioner": {"use": True, "spec": dict(wrapper, nf_max=entry.nf_max_cond)},
-        "data": {"spatial_size": [entry.spatial_size] * 2, "max_frames": entry.max_frames,
-                 "batch_size": b, "n_examples": 2 * b},
+        # JAX's training order with zero pokes (configs/second_stage.yaml), an
+        # epoch of 2 + steps batches
+        "data": {"dataset": "SyntheticDataset", "spatial_size": [entry.spatial_size] * 2,
+                 "max_frames": entry.max_frames, "batch_size": b, "n_examples": (2 + steps) * b,
+                 "zero_poke": True, "zero_poke_amount": 12, "n_workers": 4},
         "architecture": {"num_steps": list(entry.num_steps), "factor": entry.factor,
                          "flow_mid_channels_factor": entry.flow_mid_channels_factor,
                          "kernel_size": [2, 3], "transform": "affine", "prior_transform": "affine",
@@ -794,8 +821,8 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
         if moved < n_float // 2 or not ckpt_ok or meta["step"] != 1 + steps:
             raise SystemExit("train: the params did not move, or last.npz does not reload to them")
 
-    batch = next(train_batches(from_data_config(config["data"]), BATCH, seed=1))
-    batch = {k: torch.from_numpy(batch[k]).to(device) for k in ("images", "poke")}
+    batch = to_device(next(iter(StaticDataModule(config["data"]).loader("val"))), device,
+                      ("images", "poke"))
     flow = run["state"].params["flow"]
     with torch.no_grad():
         x, _ = second_stage.encode_first_stage(trained, spec, batch["images"])
@@ -833,8 +860,9 @@ def stage1_config(entry, b=BATCH, steps=STAGE1_STEPS):
     ss = entry.spatial_size
     return {
         "general": {"experiment": "chip_smoke_stage1", "seed": 0},
-        "data": {"spatial_size": [ss, ss], "max_frames": entry.max_frames, "batch_size": b,
-                 "n_examples": 2 * b},
+        "data": {"dataset": "SyntheticDataset", "spatial_size": [ss, ss],
+                 "max_frames": entry.max_frames, "batch_size": b, "n_examples": (1 + steps) * b,
+                 "zero_poke": True, "zero_poke_amount": 12, "n_workers": 4},
         "architecture": {"z_dim": entry.fs_z_dim,
                          "ENC_M_channels": list(registry.default_enc_channels(ss)),
                          "dec_channels": list(registry.default_dec_channels(ss)),
@@ -972,7 +1000,7 @@ def phase_stage1(device, card, entry, steps=STAGE1_STEPS, b=BATCH):
         if not test_err <= STAGE1_TEST_TOL or n_test != (0, 0):
             raise SystemExit(f"stage1: test of the best checkpoint disagrees: {tested} vs {val}")
 
-    example = next(train_batches(from_data_config(config["data"]), 1, seed=1))["images"]
+    example = next(iter(StaticDataModule(config["data"]).loader("val")))["images"][:1]
     x = torch.from_numpy(example[:, :dt_spec.sequence_length])
     gp_card = _gp(dt_spec, gp_dt, x.to(device))
     with torch.backends.mkldnn.flags(enabled=False):   # oneDNN's f32 convs round coarser
@@ -1042,7 +1070,7 @@ def phase_eval(device, card, entry, spec, params, tmp):
     numbers."""
     config = eval_config(entry)
     dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
-    data = SyntheticDataModule(config["data"])
+    data = StaticDataModule(config["data"])
     units = 4 * sum(spec.flow.num_steps)
     out = {"i3d_pretrained": i3d.i3d().pretrained, "lpips_pretrained": lpips_pretrained()}
     t_phase = time.perf_counter()
@@ -1130,6 +1158,320 @@ def phase_eval(device, card, entry, spec, params, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the data path on a prepared tree, and the conditioning towers' trainers
+# ---------------------------------------------------------------------------
+
+DATA_VIDEOS, DATA_FRAMES, DATA_STORED, DATA_GAPS = 4, 30, 256, (5, 10)
+DATA_BATCHES = 20          # loader batches timed per augment setting
+AE_STEPS = 4               # timed encoder steps, after one warm-up step
+AE_BATCH = 16              # configs/img_encoder.yaml, configs/poke_encoder.yaml
+ENC_TOL = 2e-4             # the card's encoder step against the CPU's, relative to 1 + max|ref|
+
+
+def data_config(meta, entry, b=BATCH, augment=False):
+    """The iPER tree's data section at ``entry``'s size, JAX's zero pokes."""
+    return {"dataset": "IperDataset", "meta_path": meta, "spatial_size": [entry.spatial_size] * 2,
+            "max_frames": entry.max_frames, "batch_size": b, "n_workers": 4, "zero_poke": True,
+            "zero_poke_amount": 12, "augment": augment, "seed": 0, "poke_size": 5, "n_pokes": 5}
+
+
+def _loader_run(card, device, cfg, n_batches):
+    """``n_batches`` batches of fresh ``loader("train")`` epochs through
+    ``device_prefetch``, as a trainer draws them: batches/s, samples/s and
+    the zero-poke share."""
+    dm = StaticDataModule(cfg)
+    got, zero, n_epochs = 0, 0, 0
+    keys = ("images", "poke", "flow", "sample_ids")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while got < n_batches:
+        n_epochs += 1
+        for batch in device_prefetch(dm.loader("train"), device, keys):
+            zero += int((batch["sample_ids"] == -1).sum())
+            got += 1
+            if got == n_batches:
+                break
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    b = cfg["batch_size"]
+    out = {"batches": got, "epochs": n_epochs, "s": dt, "batches_per_s": got / dt,
+           "samples_per_s": got * b / dt, "zero_poke_share": zero / (got * b),
+           "train_examples": len(dm.datasets["train"])}
+    log(f"data [{card}]: loader, augment {cfg['augment']}: {got} batches of {b} in {n_epochs} "
+        f"epochs of {out['train_examples']} examples, {dt:.2f} s: {out['batches_per_s']:.3f} "
+        f"batches/s, {out['samples_per_s']:.2f} samples/s; zero-poke share {out['zero_poke_share']:.4f}")
+    return out
+
+
+def _h2d(card, device, batch, reps=5):
+    """Milliseconds of one batch's pinned, non-blocking copy to the card (CUDA events)."""
+    keys = ("images", "poke", "flow")
+    nbytes = sum(batch[k].nbytes for k in keys)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(reps):
+        pinned = {k: torch.from_numpy(batch[k]).pin_memory() for k in keys}
+        torch.cuda.synchronize()
+        start.record()
+        for v in pinned.values():
+            v.to(device, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    out = {"ms": _median(ms), "bytes": nbytes, "gb_per_s": nbytes / _median(ms) / 1e6}
+    log(f"data [{card}]: H2D copy of one batch ({nbytes / 1e6:.1f} MB pinned, non-blocking): "
+        f"median {out['ms']:.3f} ms of {reps}, {out['gb_per_s']:.2f} GB/s")
+    return out
+
+
+def _ae_batches(cfg, device, keys, n=2):
+    """The first ``n`` batches of the tree's training loader on the card,
+    cycled (the loader's own rate is timed above; at ~0.3 s per example a
+    fresh batch of 16 per step would take most of the phase)."""
+    dm = StaticDataModule(cfg, datakeys=keys + ("sample_ids",))
+    first = []
+    for batch in device_prefetch(dm.loader("train"), device, keys):
+        first.append(batch)
+        if len(first) == n:
+            break
+    while True:
+        yield from first
+
+
+def _ae_steps(card, device, name, step_fn, state, batches, steps):
+    """One warm-up step then ``steps`` timed ones: host ms to a synchronised
+    card, each phase's ms by CUDA events, the peak memory, the logs."""
+    rng = prng.prng_key(0)
+    hist = []
+    held = torch.cuda.memory_allocated() / 2**30    # earlier phases' live tensors
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + steps):
+        batch = next(batches)
+        rng, sub = prng.split(rng)
+        events = [torch.cuda.Event(enable_timing=True)]
+        names = []
+
+        def on_phase(phase):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            names.append(phase)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        if isinstance(state, train_enc.AETrainState):
+            state, logs = step_fn(state, batch, sub, on_phase=on_phase)
+        else:
+            state, logs = step_fn(state, batch, sub)
+            on_phase("events")
+        torch.cuda.synchronize()
+        h = {k: float(v) for k, v in logs.items()}
+        h["step_ms"] = (time.perf_counter() - t0) * 1e3
+        h.update({f"{n}_ms": events[j].elapsed_time(events[j + 1]) for j, n in enumerate(names)})
+        hist.append(h)
+        log(f"data [{card}]: {name} step {i}{' (warm-up)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in h.items()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = hist[1:]
+    out = {"step_ms_median": _median([h["step_ms"] for h in timed]), "peak_gib": peak,
+           "held_gib": held, "history": hist}
+    for k in hist[0]:
+        if k.endswith("_ms") and k != "step_ms":
+            out[f"{k}_median"] = _median([h[k] for h in timed])
+    log(f"data [{card}]: {name}: median step {out['step_ms_median']:.1f} ms of {steps}"
+        + "".join(f", {k[:-10]} {v:.1f} ms" for k, v in out.items()
+                  if k.endswith("_ms_median") and k != "step_ms_median")
+        + f"; peak {peak:.2f} GiB, {peak - held:.2f} above the {held:.2f} held before")
+    if not all(np.isfinite(v) for h in hist for v in h.values()):
+        raise SystemExit(f"data: {name}: a loss is not finite")
+    return state, out
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.detach().to(dtype).requires_grad_(tree.requires_grad)
+
+
+def _enc_card_vs_cpu(card, device, name, make, batch_np, keys):
+    """One step of ``make(device, dtype) -> (state, step_fn)`` on the card
+    and on the CPU (TF32 off on the card, oneDNN off on the CPU) on the same
+    batch: in f32 the logs (every loss and ``d_weight``) within ENC_TOL of
+    the CPU's; in f64 the logs and the gradients (2 x Adam's first moment
+    after one step of b1 0.5) within ENC_TOL.  The image AE's f32 gradients
+    are printed beside them: its adaptive weight sets the adversarial
+    gradient against the NLL's, and their sum is ill-conditioned in f32."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            with torch.backends.mkldnn.flags(enabled=False):
+                state, step_fn = make(dev, dtype)
+                batch = {k: v.to(dtype) for k, v in to_device(batch_np, dev, keys).items()}
+                t0 = time.perf_counter()
+                new, logs = step_fn(state, batch, prng.prng_key(1))
+                _sync(dev)
+                runs[dev.type] = ({k: float(v) for k, v in logs.items()},
+                                  [(2 * m).detach().cpu() for m in new.opt_state[0]["mu"]],
+                                  time.perf_counter() - t0)
+        (lc, gc, _), (lr, gr, sr) = runs["cuda"], runs["cpu"]
+        tag = "f32" if dtype == torch.float32 else "f64"
+        out[f"{tag}_logs_max_rel"] = max(abs(lc[k] - lr[k]) / (1 + abs(lr[k])) for k in lr)
+        out[f"{tag}_grads_max_rel"] = max(float((a - b).abs().max() / (1 + b.abs().max()))
+                                          for a, b in zip(gc, gr))
+        out[f"{tag}_cpu_s"] = sr
+    log(f"data [{card}]: {name} step, card against CPU: f32 logs max rel "
+        f"{out['f32_logs_max_rel']:.3g} (f32 gradients {out['f32_grads_max_rel']:.3g}); f64 logs "
+        f"{out['f64_logs_max_rel']:.3g}, gradients {out['f64_grads_max_rel']:.3g} over {len(gr)} "
+        f"leaves (tolerance {ENC_TOL}; CPU step f32 {out['f32_cpu_s']:.1f} s, f64 "
+        f"{out['f64_cpu_s']:.1f} s)")
+    if not max(out["f32_logs_max_rel"], out["f64_logs_max_rel"], out["f64_grads_max_rel"]) <= ENC_TOL:
+        raise SystemExit(f"data: the card's {name} step disagrees with the CPU's: {out}")
+    return out
+
+
+def _write_config(path, config):
+    from ipoke_tpu_torch.config import save_yaml
+
+    save_yaml(config, path)
+    return path
+
+
+def phase_data(device, card, entry, train_step_ms, tmp):
+    """The data path on a prepared iPER-layout tree (``data/tree``: 4
+    videos of 30 frames stored at 256^2 so the LANCZOS resize runs, PNG rows
+    with all five filters, flow at lags 5 and 10, train.txt naming 3): the
+    loader at entry's size (B=8, 4 workers, zero pokes) with augment off and
+    on over DATA_BATCHES batches each and one batch's H2D copy; the image AE
+    (the conditioner's width, variational) and the poke AE (the poke
+    embedder's width) at B=AE_BATCH for 1 + AE_STEPS steps on two batches of
+    the tree, each trainer's validation (lpips-val) with its top-k save, and
+    the image AE's ``test`` through ``python -m ipoke_tpu_torch.main``; one
+    step of each on the card against the CPU; then 2 steps of the stage-2
+    trainer through ``main`` on the tree at entry's width and cut depth.
+    Launch counts read around every path (none launches K1 or K2)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "iper")
+    t0 = time.perf_counter()
+    meta = write_tree(root, n_videos=DATA_VIDEOS, n_frames=DATA_FRAMES, size=DATA_STORED,
+                      gaps=DATA_GAPS, train_videos=3)
+    out = {"tree_s": time.perf_counter() - t0}
+    try:
+        import cv2  # noqa: F401
+        mask = "GrabCut (cv2)"
+    except ImportError:
+        mask = "flow amplitude (no cv2)"
+    log(f"data [{card}]: tree of {DATA_VIDEOS} videos x {DATA_FRAMES} frames at {DATA_STORED}^2 written in "
+        f"{out['tree_s']:.1f} s; iPER's foreground masks by {mask}")
+    out["mask"] = mask
+    _zero_counts()
+    out["loader"] = [_loader_run(card, device, data_config(meta, entry, augment=aug), DATA_BATCHES)
+                     for aug in (False, True)]
+    n = _counts()
+    batch_np = next(iter(StaticDataModule(data_config(meta, entry)).loader("train")))
+    out["h2d"] = _h2d(card, device, batch_np)
+    log(f"data [{card}]: loader {out['loader'][0]['batches_per_s']:.3f} batches/s (augment off), "
+        f"{out['loader'][1]['batches_per_s']:.3f} (on), against the stage-2 train step of the "
+        f"train phase {train_step_ms:.1f} ms ({1e3 / train_step_ms:.3f} steps/s); K1/K2 launches {n}")
+    if n != (0, 0) or not all(0 < r["zero_poke_share"] < 0.5 for r in out["loader"]):
+        raise SystemExit(f"data: the loader launched a kernel or drew no zero pokes: {out['loader']}")
+
+    logs_root = os.path.join(tmp, "logs")
+    for kind, name, keys in (("img_encoder", "image AE", ("images",)),
+                             ("poke_encoder", "poke AE", ("poke", "flow", "images"))):
+        nf_max = entry.nf_max_cond if kind == "img_encoder" else entry.nf_max_poke
+        config = {"general": {"experiment": kind, "seed": 42, "base_dir": logs_root},
+                  "data": data_config(meta, entry, b=AE_BATCH),
+                  "architecture": {"nf_max": nf_max, "min_spatial_size": entry.min_spatial_size,
+                                   "deterministic": kind == "poke_encoder"},
+                  "training": {"lr": 1e-4, "w_kl": 1e-6, "gp_weight": 0.0, "n_epochs": 1,
+                               "max_batches_per_epoch": 1, "max_val_batches": 1},
+                  "logging": {"n_saved_ckpt": 2}}
+        spec, disc_spec = experiment_enc.specs_from_config(config)
+
+        def make(dev, dtype=torch.float32, spec=spec, disc_spec=disc_spec):
+            key = prng.prng_key(42)
+            if disc_spec is not None:
+                st, opts = train_enc.init_image_ae(key, spec, disc_spec, device=dev)
+                if dtype != torch.float32:
+                    p, d = _cast(st.params, dtype), _cast(st.disc_params, dtype)
+                    st = train_enc.AETrainState(0, p, d, opts["gen"].init(train_fs.trainable(p)),
+                                                opts["disc"].init(train_fs.trainable(d)))
+                return st, train_enc.make_image_ae_step(spec, disc_spec, opts)
+            st, opt = train_enc.init_poke_ae(key, spec, device=dev)
+            if dtype != torch.float32:
+                p = _cast(st.params, dtype)
+                st = train_enc.PokeAEState(0, p, opt.init(train_fs.trainable(p)))
+            return st, train_enc.make_poke_ae_step(spec, opt)
+
+        res = {"spec": {"nf_max": nf_max, "spatial_size": spec.spatial_size,
+                        "variational": not spec.deterministic, "batch": AE_BATCH}}
+        _zero_counts()
+        state, step_fn = make(device)
+        state, res["steps"] = _ae_steps(card, device, name, step_fn, state,
+                                        _ae_batches(config["data"], device, keys), AE_STEPS)
+        res["launches"] = dict(zip(("mcf_inverse", "macow_unit_inverse"), _counts()))
+        del state
+        res["card_vs_cpu"] = _enc_card_vs_cpu(
+            card, device, name, make, {k: v[:2] for k, v in batch_np.items()}, keys)
+        cfg_path = _write_config(os.path.join(tmp, f"{kind}.yaml"), config)
+        _zero_counts()
+        t0 = time.perf_counter()
+        run = port_main.main(["-c", cfg_path, "-m", "smoke", "--device", "cuda"])
+        train_s = time.perf_counter() - t0
+        val = run["val"][-1]
+        kept = sorted(f for f in os.listdir(run["ckpt_dir"]) if f.startswith("step="))
+        log(f"data [{card}]: {name} trainer through main: {len(run['history'])} step, "
+            f"validation lpips-val {val['lpips-val']:.6g} ({val['val_s']:.1f} s), kept {kept}; "
+            f"{train_s:.1f} s; K1/K2 launches {_counts()}")
+        res.update(trainer_s=train_s, val=val["lpips-val"], kept=kept)
+        if kind == "img_encoder":
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "ipoke_tpu_torch.main", "-c", cfg_path,
+                                   "-m", "smoke", "--test", "fvd", "--device", "cuda"],
+                                  cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+            test_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise SystemExit(f"data: main --test failed:\n{proc.stderr[-3000:]}")
+            tested = json.loads(proc.stdout.strip().splitlines()[-1])
+            rel = abs(tested["lpips-val"] - val["lpips-val"]) / (1 + abs(val["lpips-val"]))
+            log(f"data [{card}]: python -m ipoke_tpu_torch.main --test (find_best, then validate): "
+                f"lpips-val {tested['lpips-val']:.6g}, {test_s:.1f} s with start-up; relative "
+                f"difference from the trainer's validation {rel:.3g} (tolerance {STAGE1_TEST_TOL})")
+            if not rel <= STAGE1_TEST_TOL:
+                raise SystemExit(f"data: the test of the best checkpoint disagrees: {tested} vs {val}")
+            res.update(test_s=test_s, test=tested["lpips-val"])
+        out[kind] = res
+
+    # stage 2 on the tree: iper_128's width at cut depth, 2 steps through main
+    config = train_config(entry)
+    config["general"].update(experiment="second_stage", base_dir=logs_root)
+    config["architecture"]["num_steps"] = list(TOPK_NUM_STEPS)
+    config["data"] = data_config(meta, entry)
+    config["training"].update(n_epochs=1, max_batches_per_epoch=10)
+    cfg_path = _write_config(os.path.join(tmp, "second_stage.yaml"), config)
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = port_main.main(["-c", cfg_path, "-m", "smoke", "--device", "cuda", "--max-steps", "2"])
+    s2_s = time.perf_counter() - t0
+    n = _counts()
+    hist = run["history"]
+    log(f"data [{card}]: stage-2 trainer through main on the tree (num_steps {TOPK_NUM_STEPS}): "
+        f"{len(hist)} steps, flow_loss {[round(h['flow_loss'], 4) for h in hist]}, step ms "
+        f"{[round(h['step_s'] * 1e3, 1) for h in hist]}; {s2_s:.1f} s; K1/K2 launches {n}")
+    if len(hist) != 2 or not all(np.isfinite(h["flow_loss"]) for h in hist) or n != (0, 0):
+        raise SystemExit(f"data: the stage-2 trainer on the tree failed: {hist}, {n}")
+    out["stage2"] = {"s": s2_s, "flow_loss": [h["flow_loss"] for h in hist],
+                     "step_ms": [h["step_s"] * 1e3 for h in hist]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"data [{card}]: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def ptxas_report(log_text):
     """registers / shared memory / spills lines of nvcc -Xptxas -v."""
     keep = [ln.strip() for ln in log_text.splitlines()
@@ -1196,6 +1538,8 @@ def main():
     del params
     train = phase_train(device, card, entry)
     stage1 = phase_stage1(device, card, entry)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        data = phase_data(device, card, entry, train["step_ms_median"], tmp)
 
     src = "ipoke_tpu_torch/csrc/{}.cu"
     rows = [
@@ -1212,6 +1556,8 @@ def main():
                 for m in ("run_fvd", "run_diversity", "run_samples", "validate", "test_fvd")},
              eval_topk_train_launches=ev["topk"]["launches"][name],
              eval_stage1_test_launches=stage1["test_launches"][name],
+             image_ae_step_launches=data["img_encoder"]["launches"][name],
+             poke_ae_step_launches=data["poke_encoder"]["launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -1223,6 +1569,7 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    print(json.dumps({"data": data}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)
     print(json.dumps({"stage1": stage1}, default=float), flush=True)
     print(json.dumps({"train": train}), flush=True)

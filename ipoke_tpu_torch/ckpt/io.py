@@ -50,6 +50,11 @@ def _unflatten(flat):
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = np.asarray(val)
+    for prefix, n in lens.items():   # an empty list has no leaf of its own
+        if n == 0:
+            node = root
+            for part in prefix.split(SEP):
+                node = node.setdefault(part, {})
 
     def listify(node, prefix=""):
         if not isinstance(node, dict):

@@ -19,7 +19,10 @@ checkpoint's trainable subtree bridges too.  Stage-1 training trees keep
 ``u``: ``bridge_gan_params`` / ``unbridge_gan_params`` carry the generator
 (a first-stage tree) and both discriminators both ways, ``u`` included.  A
 flow distillation student is a flow tree (``bridge_flow``); a direct
-student has its own pair (``bridge_direct`` / ``unbridge_direct``).  ``unbridge_second_stage`` is
+student has its own pair (``bridge_direct`` / ``unbridge_direct``).  The
+encoder trainers' trees (a tower wrapper with both halves, ``u`` kept, and
+the image AE's patch discriminator) go both ways through ``bridge_wrapper``
+/ ``unbridge_wrapper``.  ``unbridge_second_stage`` is
 the inverse: the port's params (or any tree of that layout, an optimizer
 moment with None at the integer leaves) back to JAX's layouts as numpy, steps
 stacked and permutations int32, for ``ckpt/io.save``.
@@ -256,3 +259,39 @@ def unbridge_gan_params(nets):
     of that layout such as optimizer moments), as numpy for ``ckpt/io.save``."""
     return {k: (_unbridge_first_stage(v) if k == "gen_params" else _export(v))
             for k, v in nets.items()}
+
+
+# ---------------------------------------------------------------------------
+# the encoder trainers: a tower wrapper with both halves, ``u`` kept
+# ---------------------------------------------------------------------------
+
+def bridge_wrapper(tree, device=None, keep_u=True):
+    """A JAX ``init_wrapper`` tree ({'encoder', 'decoder'}; or a tree of
+    that layout such as an optimizer moment) -> the port's: the decoder's
+    upsampling blocks hold conv1 and res_conv as transpose convs."""
+    device = resolve_device(device)
+    conv = lambda t, transposed=False: _convert(t, device, transposed, keep_u)  # noqa: E731
+    out = {"encoder": conv(tree["encoder"])}
+    if "decoder" in tree:
+        dec = tree["decoder"]
+        out["decoder"] = {
+            "in_block": conv(dec["in_block"]),
+            "blocks": [{k: conv(v, transposed=k != "conv2") for k, v in b.items()}
+                       for b in dec["blocks"]],
+            "out_conv": conv(dec["out_conv"]),
+        }
+    return out
+
+
+def unbridge_wrapper(params):
+    """The inverse of ``bridge_wrapper``, as numpy for ``ckpt/io.save``."""
+    out = {"encoder": _export(params["encoder"])}
+    if "decoder" in params:
+        dec = params["decoder"]
+        out["decoder"] = {
+            "in_block": _export(dec["in_block"]),
+            "blocks": [{k: _export(v, transposed=k != "conv2") for k, v in b.items()}
+                       for b in dec["blocks"]],
+            "out_conv": _export(dec["out_conv"]),
+        }
+    return out

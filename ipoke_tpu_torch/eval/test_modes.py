@@ -3,7 +3,7 @@ the reference's models/second_stage_video.py:661-1171).
 
 Every mode takes (params, spec, config, datamod, dirs): the model's params
 on the device it samples on, its spec, the run's config, a data module with
-``loader('test')`` (``data/synthetic.SyntheticDataModule``) and the run's
+``loader('test')`` (``data/datamodule.StaticDataModule``) and the run's
 directories.  It writes its artifacts under ``dirs['generated']`` in the JAX
 package's layout and returns a summary dict, also written to
 ``generated/metrics/<mode>.json``.  The keys are JAX's:

@@ -9,7 +9,8 @@ student trains into a fresh version directory under ``<base>/distill``.
 
 ``train`` distils the teacher's sampling path into the ``distill:`` section's
 student (``direct``: hidden, depth; ``flow``: num_steps, default one step per
-level) with optax's ``adam(distill.lr)`` on the synthetic dataset, validates
+level) with optax's ``adam(distill.lr)`` on the config's data in JAX's order
+(``data/datamodule.StaticDataModule``), validates
 by ``distill-val`` (the held-out MSE or NLL) and keeps the top-k checkpoints
 and ``last.npz`` in JAX's npz layout.  ``test`` writes teacher and student
 videos of the first test batches side by side.
@@ -27,7 +28,9 @@ from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import (
     bridge_direct, bridge_flow, bridge_second_stage, unbridge_direct, unbridge_flow)
-from ipoke_tpu_torch.data.synthetic import eval_batches, from_data_config, train_batches
+from ipoke_tpu_torch.data.datamodule import StaticDataModule
+from ipoke_tpu_torch.data.loader import device_prefetch, to_device
+from ipoke_tpu_torch.experiments.base import debug_shrink
 from ipoke_tpu_torch.experiments.second_stage import (
     build_spec_from_config, new_version_dir, version_dir)
 from ipoke_tpu_torch.flows import transformer
@@ -97,8 +100,7 @@ def _z_shape(spec, student, b):
     return transformer.reverse_input_shape(flow_spec, b, spec.latent_size, spec.flow_in_channels)
 
 
-def _to_device(batch, device):
-    return {k: torch.from_numpy(batch[k]).to(device) for k in ("images", "poke")}
+DATAKEYS = BATCH_KEYS = ("images", "poke")   # DistillExperiment.datakeys
 
 
 def unbridge_student(student, tree):
@@ -126,16 +128,20 @@ def ckpt_tree(state, optimizer, student):
             "step": np.asarray(state["step"], np.int32)}
 
 
-def validate(state, teacher, spec, student, config, device):
+def validate(state, teacher, spec, student, config, device, datamod=None):
     """Held-out distillation loss (MSE for direct / NLL for flow) over the
-    first ``max_val_batches`` validation batches, z from ``prng_key(9000 + bi)``."""
+    first ``max_val_batches`` batches of ``datamod.loader("val")`` (the
+    trainer's data module; by default a fresh one of the config's data), z
+    from ``prng_key(9000 + bi)``."""
     is_direct = isinstance(student, distill.DirectStudentSpec)
     data_cfg = config["data"]
     max_b = int(config.get("training", {}).get("max_val_batches", 4))
     losses = []
-    batches = eval_batches(from_data_config(data_cfg, train=False), int(data_cfg.get("batch_size", 8)))
-    for bi, batch in zip(range(max_b), batches):
-        batch = _to_device(batch, device)
+    datamod = datamod or StaticDataModule(data_cfg, datakeys=DATAKEYS)
+    for bi, batch in enumerate(datamod.loader("val")):
+        if bi >= max_b:
+            break
+        batch = to_device(batch, device, BATCH_KEYS)
         x0 = batch["images"][:, 0]
         cond = second_stage.embed_cond(teacher, spec, x0, batch["poke"])
         z = prng.normal(prng.prng_key(9000 + bi), _z_shape(spec, student, x0.shape[0]), device)
@@ -161,9 +167,7 @@ def train(config, dirs, device=None, max_steps=None):
     step and ``distill-val``)."""
     device = resolve_device(device)
     cfg_t = config.setdefault("training", {})
-    if config["general"].get("debug"):   # the JAX experiment's debug shrink
-        cfg_t["max_batches_per_epoch"] = 10
-        cfg_t["max_val_batches"] = 2
+    debug_shrink(config)
     spec = build_spec_from_config(config)
     student = student_of(config, spec)
     teacher = load_teacher(config, dirs, spec, device)
@@ -176,24 +180,22 @@ def train(config, dirs, device=None, max_steps=None):
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 500))
     n_epochs = int(cfg_t.get("n_epochs", 10))
     val_every = int(steps_per_epoch * float(cfg_t.get("val_every", 1.0)))
-    data_cfg = config["data"]
-    batches = train_batches(from_data_config(data_cfg), int(data_cfg.get("batch_size", 8)),
-                            seed=int(data_cfg.get("seed", 0)))
+    datamod = StaticDataModule(config["data"], datakeys=DATAKEYS)
     rng = prng.prng_key(_seed(config) + 1)
     history, vals = [], []
 
     def run_validation():
-        metrics = validate(state, teacher, spec, student, config, device)
+        metrics = validate(state, teacher, spec, student, config, device, datamod)
         mgr.save_step(ckpt_tree(state, opt, student), state["step"], metrics[MONITOR])
         vals.append({"step": state["step"], **metrics})
         log.info("step %d: %s=%.6g", state["step"], MONITOR, metrics[MONITOR])
 
     total = n_epochs * steps_per_epoch if max_steps is None else min(max_steps, n_epochs * steps_per_epoch)
     for epoch in range(n_epochs):
-        for _ in range(steps_per_epoch):
-            if state["step"] >= total:
+        batches = device_prefetch(datamod.loader("train"), device, BATCH_KEYS)
+        for bi, batch in enumerate(batches):
+            if bi >= steps_per_epoch or state["step"] >= total:
                 break
-            batch = _to_device(next(batches), device)
             rng, sub = prng.split(rng)
             x0 = batch["images"][:, 0]
             cond = second_stage.embed_cond(teacher, spec, x0, batch["poke"])
@@ -228,11 +230,11 @@ def test(config, dirs, device=None):
     out_dir = os.path.join(dirs["generated"], "distill_samples")
     os.makedirs(out_dir, exist_ok=True)
     n = int(config.get("testing", {}).get("n_examples", 2))
-    data_cfg = config["data"]
-    batches = eval_batches(from_data_config(data_cfg, train=False), int(data_cfg.get("batch_size", 8)))
     written = []
-    for bi, batch in zip(range(n), batches):
-        batch = _to_device(batch, device)
+    for bi, batch in enumerate(StaticDataModule(config["data"], datakeys=DATAKEYS).loader("test")):
+        if bi >= n:
+            break
+        batch = to_device(batch, device, BATCH_KEYS)
         key = prng.prng_key(1000 + bi)
         vid_t = second_stage.forward_sample(teacher, spec, batch, key, add_first_frame=True)[0]
         vid_s = distill.forward_sample_student(teacher, student_params, student, spec, batch, key,

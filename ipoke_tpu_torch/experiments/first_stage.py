@@ -2,9 +2,10 @@
 of ``ipoke_tpu/experiments/first_stage.py``).
 
 ``specs_from_config`` reads the generator and both discriminator specs as
-the JAX experiment does; ``train`` trains the three nets on the synthetic
-dataset, validated at each epoch's end by FVD, SSIM, PSNR and LPIPS of the
-reconstructions, and keeps the top-k checkpoints by ``FVD-val`` and
+the JAX experiment does; ``train`` trains the three nets on the config's
+data (``data/datamodule.StaticDataModule``), validated at each epoch's end
+by FVD, SSIM, PSNR and LPIPS of the reconstructions, and keeps the top-k
+checkpoints by ``FVD-val`` and
 ``last.npz`` in JAX's npz layout; ``test`` validates the best checkpoint.
 The ``poke_vae`` baseline waits for ``models/variants`` (ROADMAP queue 1
 item 8).
@@ -26,9 +27,9 @@ import torch
 from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, unbridge_gan_params
-from ipoke_tpu_torch.data.synthetic import SyntheticDataModule, from_data_config, train_batches
+from ipoke_tpu_torch.data.datamodule import StaticDataModule
 from ipoke_tpu_torch.eval.test_modes import Clock, params_device
-from ipoke_tpu_torch.experiments.base import MONITOR, fit
+from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader
 from ipoke_tpu_torch.experiments.second_stage import new_version_dir, version_dir
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.metrics.image import psnr, ssim_video
@@ -134,9 +135,12 @@ def validate(gen_params, fs_spec, config, datamod, timings=None):
 
 def train(config, dirs, device=None, max_steps=None):
     """Train the generator and both discriminators as
-    ``FirstStageExperiment.train`` does, on the synthetic dataset, validated
-    (``validate``) at each epoch's end (``experiments/base.fit``; JAX's
-    stage 1 has no step schedule), each validation keeping the top
+    ``FirstStageExperiment.train`` does, on the batches of
+    ``StaticDataModule(config["data"]).loader("train")`` in JAX's order
+    (a fresh loader per epoch, at most ``max_batches_per_epoch`` of its
+    batches), validated (``validate``) at each epoch's end
+    (``experiments/base.fit``; JAX's stage 1 has no step schedule), each
+    validation keeping the top
     ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
     a fresh version directory, in JAX's layout; ``last.npz`` is written at
     the end too when the last step was not validated.
@@ -152,9 +156,7 @@ def train(config, dirs, device=None, max_steps=None):
     device = resolve_device(device)
     _check_baseline(config)
     cfg_t = config.setdefault("training", {})
-    if config["general"].get("debug"):   # the JAX experiment's debug shrink
-        cfg_t["max_batches_per_epoch"] = 10
-        cfg_t["max_val_batches"] = 2
+    debug_shrink(config)
     fs_spec, ds_spec, dt_spec, n_spatial = specs_from_config(config)
     seed = int(config["general"].get("seed", 42))
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 2000))
@@ -170,18 +172,14 @@ def train(config, dirs, device=None, max_steps=None):
         fs_spec, ds_spec, dt_spec, opts, w_vgg=float(cfg_t.get("w_vgg", 10.0)),
         w_l1=float(cfg_t.get("w_l1", 10.0)), w_kl=float(cfg_t.get("w_kl", 1e-7)),
         n_spatial_examples=n_spatial, remat=bool(cfg_t.get("remat", False)))
-    data_cfg = config["data"]
-    batches = train_batches(from_data_config(data_cfg), int(data_cfg.get("batch_size", 8)),
-                            seed=int(data_cfg.get("seed", 0)))
-    datamod = SyntheticDataModule(data_cfg)
+    datamod = StaticDataModule(config["data"])
     ckpt_dir = new_version_dir(dirs["ckpt"])
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
     run = {"state": state, "rng": prng.prng_key(seed)}
     history, vals = [], []
 
-    def step():
-        batch = {"images": torch.from_numpy(next(batches)["images"]).to(device)}
+    def step(batch):
         run["rng"], sub = prng.split(run["rng"])
         sync()
         t0 = time.perf_counter()
@@ -201,7 +199,8 @@ def train(config, dirs, device=None, max_steps=None):
         vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
         log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
 
-    n_steps = fit(step, int(cfg_t.get("n_epochs", 100)), steps_per_epoch,
+    n_steps = fit(step, int(cfg_t.get("n_epochs", 100)),
+                  train_loader(datamod, device, ("images",)), steps_per_epoch,
                   validate=run_validation, max_steps=max_steps)
     state = run["state"]
     ckpt = os.path.join(ckpt_dir, "last.npz")
@@ -236,7 +235,7 @@ def test(config, dirs, device=None, timings=None):
     _check_baseline(config)
     gen_params = load_generator(config, dirs, device)
     return validate(gen_params, specs_from_config(config)[0], config,
-                    SyntheticDataModule(config["data"]), timings=timings)
+                    StaticDataModule(config["data"]), timings=timings)
 
 
 def main(argv=None):

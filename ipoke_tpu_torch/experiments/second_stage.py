@@ -29,9 +29,10 @@ import torch
 from ipoke_tpu_torch import registry, resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage, unbridge_second_stage
-from ipoke_tpu_torch.data.synthetic import SyntheticDataModule, from_data_config, train_batches
+from ipoke_tpu_torch.data.datamodule import StaticDataModule
+from ipoke_tpu_torch.data.loader import to_device
 from ipoke_tpu_torch.eval import test_modes
-from ipoke_tpu_torch.experiments.base import MONITOR, fit
+from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader
 from ipoke_tpu_torch.flows.loss import flow_loss
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.models import second_stage
@@ -45,6 +46,9 @@ log = logging.getLogger(__name__)
 
 # the components a config may load from checkpoints of their own
 FROZEN_KEYS = ("first_stage", "poke_embedder", "conditioner")
+# the batch keys of SecondStageExperiment.datakeys that a step reads
+BATCH_KEYS = ("images", "poke", "flow")
+DATAKEYS = ("images", "poke", "flow", "sample_ids")
 
 
 def build_spec_from_config(config, mcf_backend: str = "cuda_unit") -> SecondStageSpec:
@@ -175,10 +179,6 @@ def ckpt_tree(state, optimizer, spec):
             "params": unbridge_second_stage(state.params, spec), "opt_state": opt}
 
 
-def _to_device(batch, device):
-    return {k: torch.from_numpy(batch[k]).to(device) for k in ("images", "poke", "flow")}
-
-
 @torch.no_grad()
 def validate(params, spec, config, datamod, timings=None):
     """``flow_loss-val`` and ``FVD-val`` over the first
@@ -198,7 +198,7 @@ def validate(params, spec, config, datamod, timings=None):
     for bi, raw in enumerate(datamod.loader("val")):
         if bi >= max_batches:
             break
-        batch = _to_device(raw, device)
+        batch = to_device(raw, device, BATCH_KEYS)
         out, logdet, _ = second_stage.forward_density(params, spec, batch)
         losses.append(float(flow_loss(out, logdet)[0]))
         rng, sub = prng.split(rng)
@@ -215,7 +215,9 @@ def validate(params, spec, config, datamod, timings=None):
 
 def train(config, dirs, device=None, max_steps=None):
     """Train the flow as ``SecondStageExperiment.train`` does, on the
-    synthetic dataset, validated on JAX's schedule: every ``val_every_steps
+    batches of ``StaticDataModule(config["data"]).loader("train")`` in JAX's
+    order (a fresh loader per epoch, at most ``max_batches_per_epoch``
+    batches of it), validated on JAX's schedule: every ``val_every_steps
     = max_batches_per_epoch * training.val_every`` steps and at each epoch's
     end (``experiments/base.fit``).  Each validation keeps the top
     ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
@@ -236,9 +238,7 @@ def train(config, dirs, device=None, max_steps=None):
     """
     device = resolve_device(device)
     cfg_t = config.setdefault("training", {})
-    if config["general"].get("debug"):   # the JAX experiment's debug shrink
-        cfg_t["max_batches_per_epoch"] = 10
-        cfg_t["max_val_batches"] = 2
+    debug_shrink(config)
     spec = build_spec_from_config(config)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
@@ -265,16 +265,14 @@ def train(config, dirs, device=None, max_steps=None):
     step_fn = train_ss.make_train_step(
         spec, frozen, opt, spatial_mean=bool(cfg_t.get("spatial_mean", False)),
         logdet_weight=float(cfg_t.get("logdet_weight", 1.0)), n_microbatches=n_micro)
-    batches = train_batches(from_data_config(data_cfg), batch_size, seed=int(data_cfg.get("seed", 0)))
-    datamod = SyntheticDataModule(data_cfg)
+    datamod = StaticDataModule(data_cfg, datakeys=DATAKEYS)
     ckpt_dir = new_version_dir(dirs["ckpt"])
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
     run = {"state": train_ss.init_state(trainable, opt), "rng": prng.prng_key(_seed(config))}
     history, vals = [], []
 
-    def step():
-        batch = _to_device(next(batches), device)
+    def step(batch):
         run["rng"], sub = prng.split(run["rng"])
         sync()
         t0 = time.perf_counter()
@@ -294,7 +292,8 @@ def train(config, dirs, device=None, max_steps=None):
         vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
         log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
 
-    n_steps = fit(step, n_epochs, steps_per_epoch, validate=run_validation,
+    n_steps = fit(step, n_epochs, train_loader(datamod, device, BATCH_KEYS), steps_per_epoch,
+                  validate=run_validation,
                   val_every_steps=int(steps_per_epoch * float(cfg_t.get("val_every", 1.0))),
                   max_steps=max_steps)
     state = run["state"]
@@ -309,11 +308,12 @@ def train(config, dirs, device=None, max_steps=None):
 def test(config, dirs, mode=None, device=None, timings=None):
     """The test mode ``mode`` (default: the config's ``general.test``, else
     ``samples``) of ``eval/test_modes`` on the run's best checkpoint over
-    the init (``load_for_serving``), on the synthetic test split."""
+    the init (``load_for_serving``), on the test split of the config's data."""
     mode = mode or config["general"].get("test") or "samples"
     fn = test_modes.mode_fn(mode)
     params, spec = load_for_serving(config, dirs, device)
-    return fn(params, spec, config, SyntheticDataModule(config["data"]), dirs, timings=timings)
+    return fn(params, spec, config, StaticDataModule(config["data"], datakeys=DATAKEYS), dirs,
+              timings=timings)
 
 
 def main(argv=None):

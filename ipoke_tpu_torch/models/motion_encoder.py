@@ -4,7 +4,7 @@ Video layout (B, T, H, W, C); conv kernels OIDHW.  The encoder compresses a
 T x S x S x 3 video into a (B, s, s, z_dim) motion latent, with the temporal
 strides the reference derives from (max_frames, full_seq, spatial_size,
 min_spatial_size).  The JAX ``apply``'s ``conv_fn``/``gn_fn``/``t_reduce``
-hooks for sequence parallelism are not ported (ROADMAP queue 1 item 8).
+hooks for sequence parallelism are not ported (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ amsgrad), ``optax.adam`` (``adam``), ``optax.adamw``, ``optax.adabelief`` and
 with optax's step count: the schedule reads the count before the update, so
 the first step runs at lr(0).  The gradients come from autograd;
 microbatches, when asked for, run one after another and their gradients are
-averaged.  ``shard_train_setup`` waits for ROADMAP queue 1 item 8.
+averaged.  ``shard_train_setup`` waits for ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ evaluation draws fresh conditionings and z and reports, for a direct
 student, motion MSE and relative error, per-channel moment match and the
 decoded videos' MSE and PSNR to the teacher's; for a flow student, the
 held-out NLL against the teacher's own and the moment match (JAX's FVD*
-comparison waits for the metrics, ROADMAP queue 1 item 6).  Prints one JSON
+comparison is ROADMAP queue 1 item 2).  Prints one JSON
 line; progress goes to stderr.  Every time is the card's, with its name and
 power limit in the JSON line.
 """

@@ -5,7 +5,8 @@
 Draws the flagship's (iper_128) params at full width and depth with the
 port's ``init`` (JAX's draw, seed 0) on the card, builds the train step as
 ``experiments/second_stage.train`` does (torch-Adam, lr 1e-3 after 2 warm-up
-steps, weight decay 1e-5, B=8 of the synthetic dataset), runs two warm-up
+steps, weight decay 1e-5, B=8 of the synthetic dataset through
+``StaticDataModule`` in JAX's order, zero pokes included), runs two warm-up
 steps, then prints:
   * the host time of STEPS steps, each to a synchronised device, and
     the peak ``max_memory_allocated``;
@@ -28,7 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ipoke_tpu_torch import registry
-from ipoke_tpu_torch.data.synthetic import SyntheticConfig, SyntheticPokeDataset, train_batches
+from ipoke_tpu_torch.data.datamodule import StaticDataModule
+from ipoke_tpu_torch.data.loader import to_device
 from ipoke_tpu_torch.flows.loss import flow_loss
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.train import second_stage as train
@@ -70,13 +72,19 @@ def main():
     opt = train.make_optimizer(lr=1e-3, weight_decay=1e-5, warmup_steps=2, total_steps=1000)
     state = train.init_state(trainable, opt)
     step = train.make_train_step(spec, frozen, opt)
-    data = SyntheticPokeDataset(SyntheticConfig(spatial_size=entry.spatial_size,
-                                                max_frames=entry.max_frames, n_examples=2 * BATCH))
-    batches = train_batches(data, BATCH)
+    data = StaticDataModule({"dataset": "SyntheticDataset", "spatial_size": entry.spatial_size,
+                             "max_frames": entry.max_frames, "n_examples": 2 * BATCH,
+                             "batch_size": BATCH, "zero_poke": True, "n_workers": 1})
+
+    def epochs():
+        while True:
+            yield from data.loader("train")
+
+    batches = epochs()
     rng = prng.prng_key(0)
 
     def next_batch():
-        return {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items() if k != "sample_ids"}
+        return to_device(next(batches), dev, ("images", "poke", "flow"))
 
     def one():
         nonlocal state, rng

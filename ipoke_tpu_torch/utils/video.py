@@ -50,10 +50,33 @@ def _png_chunk(tag, data):
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def save_image(frame, path):
+def _filter_rows(arr, filters):
+    """The PNG scanlines of (H, W, C) uint8 ``arr``, row r filtered with
+    ``filters[r % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth),
+    each behind its filter byte."""
+    h, w, c = arr.shape
+    x = arr.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]                 # the pixel to the left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                       # the pixel above
+    cc = np.zeros_like(x)
+    cc[1:, 1:] = x[:-1, :-1]             # above-left
+    pa, pb, pc = np.abs(b - cc), np.abs(a - cc), np.abs(a + b - 2 * cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1, paeth]
+    ftype = np.asarray([filters[r % len(filters)] for r in range(h)], np.uint8)
+    pred = np.stack(preds)[ftype, np.arange(h)]
+    out = ((x - pred) & 255).astype(np.uint8).reshape(h, w * c)
+    return np.concatenate([ftype[:, None], out], axis=1)
+
+
+def save_image(frame, path, filters=(0,)):
     """frame: (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) in [-1, 1] or uint8
     -> an 8-bit PNG at ``path`` (grey, RGB or RGBA, as PIL's ``fromarray``
-    writes it).  Any other shape raises.  Returns ``path``."""
+    writes it).  Any other shape raises.  ``filters``: the PNG row filters,
+    cycled over the rows (by default None on every row; ``range(5)`` uses
+    all five, as an adaptive encoder such as libpng's does).  Returns ``path``."""
     arr = to_uint8(frame)
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -61,8 +84,7 @@ def save_image(frame, path):
         raise ValueError(f"save_image: a frame of shape {arr.shape} is not an image")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     h, w, c = arr.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(arr).reshape(h, w * c)],
-                          axis=1)   # filter byte 0 (none) before every row
+    rows = _filter_rows(np.ascontiguousarray(arr), tuple(filters))
     png = (b"\x89PNG\r\n\x1a\n"
            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0))
            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))

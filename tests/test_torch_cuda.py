@@ -238,7 +238,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     grad norm and the updated params within 1e-4·(1+|ref|).  At lr 1e-5 a
     first Adam step moves a param by ~lr, so a gradient that cuDNN rounds to
     the other sign stays inside the tolerance."""
-    from ipoke_tpu_torch.data.synthetic import from_data_config, train_batches
+    from ipoke_tpu_torch.data.datamodule import StaticDataModule
     from ipoke_tpu_torch.experiments.second_stage import build_spec_from_config
     from ipoke_tpu_torch.models import second_stage
     from ipoke_tpu_torch.train import second_stage as train
@@ -255,7 +255,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     spec = build_spec_from_config(config)
     params = second_stage.init(prng.prng_key(0), spec, device="cpu")
     params["flow"] = synth.set_flow_output_gains(params["flow"], 0.05)
-    batch = next(train_batches(from_data_config(config["data"]), 2))
+    # the first training batch in JAX's order (seed 0, no zero pokes)
+    batch = next(iter(StaticDataModule(dict(config["data"], batch_size=2, n_workers=0))
+                      .loader("train")))
     runs = []
     for dev in ("cpu", cuda):
         p = {k: _copy_to(v, dev) for k, v in params.items()}
@@ -450,3 +452,109 @@ def test_fvd_run_on_the_card(cuda, tmp_path):
         assert k2.macow_unit_inverse.launches - n0 == (2 * 2 * 4 if dev == cuda else 0)
     card, cpu = scores[str(cuda)], scores["cpu"]
     assert card > 0 and abs(card - cpu) <= 1e-3 * cpu, scores
+
+
+@pytest.mark.gpu
+def test_device_prefetch_on_the_card(cuda):
+    """``data/loader.device_prefetch``: each batch through pinned memory on
+    a side stream, in order, equal to the host batch once the consumer's
+    stream has waited on its copy; a step on the batch sees the copied data."""
+    import numpy as np
+
+    from ipoke_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.normal(size=(4, 3, 32, 32, 3)).astype(np.float32),
+                "sample_ids": np.arange(4) + i} for i in range(6)]
+    got = []
+    for b in device_prefetch(iter(batches), cuda, size=2):
+        assert b["images"].is_cuda
+        got.append((b["images"] * 2).sum().item())       # a step on the consumer's stream
+    assert got == [float((torch.from_numpy(b["images"]).to(cuda) * 2).sum()) for b in batches]
+
+
+def _ae_make(kind, dev, dtype):
+    from ipoke_tpu_torch.models.discriminators import PatchDiscSpec
+    from ipoke_tpu_torch.models.encoders import WrapperSpec
+    from ipoke_tpu_torch.train import encoders as te
+    from ipoke_tpu_torch.train.first_stage import trainable
+    from ipoke_tpu_torch.utils import prng
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [cast(v) for v in t]
+        return t.detach().to(dtype).requires_grad_(t.requires_grad)
+
+    if kind == "image":
+        spec = WrapperSpec(nf_in=3, nf_max=16, spatial_size=32, min_spatial_size=8,
+                           deterministic=False)
+        disc = PatchDiscSpec(ndf=8, n_layers=2, gp_weight=0.5)
+        st, opts = te.init_image_ae(prng.prng_key(3), spec, disc, device=dev)
+        p, d = cast(st.params), cast(st.disc_params)
+        st = te.AETrainState(0, p, d, opts["gen"].init(trainable(p)), opts["disc"].init(trainable(d)))
+        return st, te.make_image_ae_step(spec, disc, opts)
+    spec = WrapperSpec(nf_in=2, nf_max=16, spatial_size=32, min_spatial_size=8,
+                       deterministic=True, poke_and_image=True)
+    st, opt = te.init_poke_ae(prng.prng_key(3), spec, device=dev)
+    p = cast(st.params)
+    return te.PokeAEState(0, p, opt.init(trainable(p))), te.make_poke_ae_step(spec, opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["image", "poke"])
+def test_encoder_step_on_the_card_matches_the_cpu(cuda, kind):
+    """One image-AE step (variational, gradient penalty 0.5) and one poke-AE
+    step (``poke_and_image``) on the card and on the CPU: every log within
+    TOL·(1+|ref|) in f32; in f64 the logs and the gradients (2 x Adam's
+    first moment) within TOL.  (The image AE's f32 gradients are not: its
+    adaptive weight sets the adversarial gradient against the NLL's.)"""
+    import numpy as np
+
+    from ipoke_tpu_torch.utils import prng
+
+    r = np.random.default_rng(0)
+    batch = {"images": r.uniform(-1, 1, (2, 2, 32, 32, 3)), "poke": r.normal(size=(2, 32, 32, 2)),
+             "flow": r.normal(size=(2, 32, 32, 2))}
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for dev in (cuda, torch.device("cpu")):
+            with torch.backends.mkldnn.flags(enabled=False):
+                st, step = _ae_make(kind, dev, dtype)
+                b = {k: torch.from_numpy(v).to(dev, dtype) for k, v in batch.items()}
+                new, logs = step(st, b, prng.prng_key(1))
+                runs.append(({k: float(v) for k, v in logs.items()},
+                             [(2 * m).detach().cpu() for m in new.opt_state[0]["mu"]]))
+        (lc, gc), (lr, gr) = runs
+        for k in lr:
+            assert abs(lc[k] - lr[k]) <= TOL * (1 + abs(lr[k])), (dtype, k, lc[k], lr[k])
+        if dtype == torch.float64:
+            for a, b_ in zip(gc, gr):
+                assert (a - b_).abs().max() <= TOL * (1 + b_.abs().max())
+
+
+@pytest.mark.gpu
+def test_encoder_trainer_on_the_card(cuda, tmp_path):
+    """``python -m ipoke_tpu_torch.main`` on a tiny image-AE config on the
+    card: one step, its validation with a top-k checkpoint, ``--test`` of
+    the best checkpoint equal to the validation."""
+    from pathlib import Path
+
+    import yaml
+
+    from ipoke_tpu_torch.main import main
+
+    cfg = yaml.safe_load((Path(__file__).resolve().parent.parent / "configs" /
+                          "img_encoder.yaml").read_text())
+    cfg["general"]["base_dir"] = str(tmp_path / "logs")
+    cfg["data"].update(spatial_size=[32, 32], max_frames=2, batch_size=2, n_examples=4,
+                       n_workers=0)
+    cfg["architecture"]["nf_max"] = 16
+    cfg["training"].update(n_epochs=1, max_batches_per_epoch=1, max_val_batches=1)
+    path = tmp_path / "img.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    run = main(["-c", str(path), "-m", "t", "--device", "cuda"])
+    assert run["state"].params["logvar"].is_cuda and len(run["val"]) == 1
+    tested = main(["-c", str(path), "-m", "t", "--device", "cuda", "--test", "fvd"])
+    assert abs(tested["lpips-val"] - run["val"][0]["lpips-val"]) <= 1e-5 * run["val"][0]["lpips-val"]

@@ -1,5 +1,5 @@
 """The port's evaluation path (``eval/test_modes``, the trainers' validation
-and top-k checkpoints, the synthetic val/test loader) against the JAX package
+and top-k checkpoints, the data module on the synthetic dataset) against the JAX package
 on the CPU, on tests/torch_port_util.py's tiny second stage (64x64, 3
 frames) with non-zero flow output gains.
 
@@ -48,7 +48,7 @@ from ipoke_tpu.utils.video import save_image as jsave_image
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
 from ipoke_tpu_torch.config import load_parameters
-from ipoke_tpu_torch.data.synthetic import SyntheticDataModule
+from ipoke_tpu_torch.data.datamodule import StaticDataModule as PortDataModule
 from ipoke_tpu_torch.eval import test_modes
 from ipoke_tpu_torch.experiments import base
 from ipoke_tpu_torch.experiments import first_stage as experiment_fs
@@ -71,7 +71,7 @@ def model(tmp_path_factory):
     spec = experiment.build_spec_from_config(cfg)
     params = experiment.init_params(cfg, spec, CPU)
     params["flow"] = synth.set_flow_output_gains(params["flow"], 0.05)
-    batches = list(SyntheticDataModule(cfg["data"]).loader("test"))
+    batches = list(PortDataModule(cfg["data"]).loader("test"))
     assert len(batches) == 3
     return cfg, spec, params, batches
 
@@ -156,20 +156,22 @@ def _dirs(tmp_path):
 
 
 def test_synthetic_loader_matches_jax_datamodule():
+    """The port's ``StaticDataModule`` on the synthetic dataset: JAX's
+    val/test batches (index order, the partial batch dropped) and its
+    training batches with zero pokes; an unknown dataset raises as JAX's."""
     data = {"dataset": "SyntheticDataset", "spatial_size": [32, 32], "max_frames": 3,
-            "batch_size": 2, "n_examples": 5, "seed": 3, "n_pokes": 2, "n_workers": 1}
-    jdm, dm = StaticDataModule(data), SyntheticDataModule(data)
-    for split in ("val", "test"):
+            "batch_size": 2, "n_examples": 5, "seed": 3, "n_pokes": 2, "n_workers": 1,
+            "zero_poke": True, "zero_poke_amount": 2}
+    jdm, dm = StaticDataModule(data), PortDataModule(data)
+    for split in ("val", "test", "train"):
         got, want = list(dm.loader(split)), list(jdm.loader(split))
         assert len(got) == len(want) == 2          # 5 examples, the partial batch dropped
         for g, w in zip(got, want):
             assert g.keys() == w.keys()
             for k in w:
                 assert np.array_equal(g[k], np.asarray(w[k])), (split, k)
-    with pytest.raises(ValueError, match="split 'train'"):
-        dm.loader("train")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        SyntheticDataModule(dict(data, dataset="IperDataset"))
+    with pytest.raises(KeyError):
+        PortDataModule(dict(data, dataset="NoSuchDataset"))
 
 
 def test_run_fvd_draws_and_scores_as_jax(model, record, tmp_path):
@@ -341,8 +343,9 @@ def test_fit_schedule_and_top_k_match_jax(tmp_path, n_epochs, steps_per_epoch, v
         seen.append(i)
         mgr.save_step({"step": np.int32(i)}, i, values[len(seen) - 1])
 
-    n = base.fit(lambda: steps.append(steps[-1] + 1), n_epochs, steps_per_epoch, validate,
-                 val_every_steps)
+    epoch = lambda: iter(range(steps_per_epoch + 1))   # noqa: E731  (JAX's loader above)
+    n = base.fit(lambda batch: steps.append(steps[-1] + 1), n_epochs, epoch, steps_per_epoch,
+                 validate, val_every_steps)
     assert seen == want and n == n_epochs * steps_per_epoch
     assert _ckpt_listing(mgr.ckpt_dir) == _ckpt_listing(jdir)
     assert os.path.basename(io.find_best(mgr.ckpt_dir)) == os.path.basename(jio.CheckpointManager.find_best(jdir))
@@ -350,8 +353,8 @@ def test_fit_schedule_and_top_k_match_jax(tmp_path, n_epochs, steps_per_epoch, v
     # only where that step ran (at cut = n, JAX's schedule above)
     for cut in range(1, n + 1):
         part = []
-        assert base.fit(lambda: None, n_epochs, steps_per_epoch, part.append, val_every_steps,
-                        max_steps=cut) == cut
+        assert base.fit(lambda batch: None, n_epochs, epoch, steps_per_epoch, part.append,
+                        val_every_steps, max_steps=cut) == cut
         expected = [s for s in range(1, cut + 1)
                     for hit in (val_every_steps and s % val_every_steps == 0, s % steps_per_epoch == 0)
                     if hit]
@@ -373,7 +376,7 @@ def test_second_stage_trainer_keeps_top_k_and_test_loads_best(model, tmp_path, m
     flows = {}
 
     def scripted(params, spec, config, datamod, timings=None):
-        assert isinstance(datamod, SyntheticDataModule)
+        assert isinstance(datamod, PortDataModule)
         flows[len(flows)] = {k: v.detach().clone() for k, v in flatten(params["flow"]).items()}
         return {"FVD-val": values[len(flows) - 1], "flow_loss-val": 0.0}
 
@@ -552,7 +555,7 @@ def test_second_stage_validate_matches_jax(model, tmp_path):
     _, jparams = _jax_model(cfg, spec, params)
     trainable, exp._frozen = split_params(jparams)
     ref = exp.validate(types.SimpleNamespace(params=trainable), exp.datamod)
-    got = experiment.validate(params, spec, config, SyntheticDataModule(config["data"]))
+    got = experiment.validate(params, spec, config, PortDataModule(config["data"]))
     print("stage-2 validate", {k: (got[k], float(ref[k])) for k in ref})
     _close(got, {k: float(v) for k, v in ref.items()})
 
@@ -579,6 +582,6 @@ def test_first_stage_validate_matches_jax(tmp_path):
     ref = exp.validate(types.SimpleNamespace(gen_params=jgen), exp.datamod)
     with torch.backends.mkldnn.flags(enabled=False):
         got = experiment_fs.validate(gen, experiment_fs.specs_from_config(cfg)[0], cfg,
-                                     SyntheticDataModule(cfg["data"]))
+                                     PortDataModule(cfg["data"]))
     print("stage-1 validate", {k: (got[k], float(ref[k])) for k in ref})
     _close(got, {k: float(v) for k, v in ref.items()})
