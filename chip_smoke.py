@@ -62,7 +62,9 @@ Phases, each fatal on failure:
              *_UNPRETRAINED value printed; the sampled videos' I3D features on
              the card against the port's CPU I3D within I3D_TOL; then the
              stage-2 trainer's top-k checkpoints at cut depth (iper_128's
-             width on one MaCowStep), find_best, and test --mode fvd on it.
+             width on one MaCowStep), find_best, and test --mode fvd on it;
+             then that run resumed (--resume) for one step, which it must
+             validate (K2, 4 launches) with its record in metrics.jsonl.
   9. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
              data in JAX's training order with zero pokes (B=8, 10 frames of
@@ -75,6 +77,18 @@ Phases, each fatal on failure:
              temporary directory) reloads to the trained params bitwise, and
              reverse(forward(x)) on the trained flow returns the motion latent
              within TRAIN_TOL with 200 K2 launches.
+  9b. resume resumption at full width and depth (B=8, the train phase's
+             config): stage-2 training through python -m ipoke_tpu_torch.main
+             in a child process, sent SIGTERM once its log shows step 2; it
+             must exit 0 with last.npz (~12.7 GB) saved after the step in
+             flight, marked preempted.  Then main --resume for 2 steps in
+             this process: the restored train state (params, Adam moments,
+             counts) equal to that last.npz bitwise, the first step at the
+             schedule's lr of the saved count, the step counter going on
+             from the saved step (the eval phase's resumed run holds
+             metrics.jsonl going on), no kernel launch.  Printed: seconds from the signal
+             to the child's exit, load and restore seconds, the first
+             resumed step's ms, the checkpoint's GB.
  10. stage1  first-stage cVAE-GAN training: experiments/first_stage.train
              on iper_128's first stage at full width from JAX's init at seed
              0 (temporal disc ResNet-18 3D with its gradient penalty, patch
@@ -106,7 +120,7 @@ Phases, each fatal on failure:
              ipoke_tpu_torch.main; then 2 stage-2 steps through main on the
              tree at cut depth.  No kernel launches on any of these paths.
  12. report  a JSON line of the data phase, one of the eval phase, one of
-             the stage-1 phase, one of the train phase, one of the distill
+             the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
              and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
@@ -120,6 +134,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -164,7 +179,9 @@ from ipoke_tpu_torch.train import distill  # noqa: E402
 from ipoke_tpu_torch.train import encoders as train_enc  # noqa: E402
 from ipoke_tpu_torch.train import first_stage as train_fs  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
+from ipoke_tpu_torch.train.lr import second_stage_schedule as lr_schedule  # noqa: E402
 from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
+from ipoke_tpu_torch.utils.logging import read_metrics  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
     k2_clusters, k2_plan, k2_work, mcf_inputs, op_overhead, sweep_k1, sweep_k2, time_ms,
@@ -204,6 +221,10 @@ EVAL_TESTING = {"seed": 42, "n_samples_fvd": 16, "n_samples_per_data_point": 3,
 # top-k and test at cut depth: iper_128's width (C=32, hidden 2048, h 128) on
 # one level of one MaCowStep, so a checkpoint saves in seconds
 TOPK_NUM_STEPS = [1]
+# resumption at full width: the child's epoch (long enough that it never ends
+# in the run), the logged step that triggers SIGTERM, the resumed steps, and
+# how long the child may take
+RESUME_EPOCH, RESUME_SIGNAL_AT, RESUME_STEPS, RESUME_TIMEOUT_S = 12, 2, 2, 300
 
 
 def log(msg):
@@ -851,6 +872,134 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
             "roundtrip_launches": {"mcf_inverse": n_rt[0], "macow_unit_inverse": n_rt[1]}}
 
 
+def _npz_meta(path):
+    """The metadata of an npz checkpoint, without reading its arrays."""
+    with np.load(path) as f:
+        return json.loads(bytes(f["__metadata__"]).decode())
+
+
+def _preempt(cfg_path, name, at_step, timeout_s=RESUME_TIMEOUT_S):
+    """``python -m ipoke_tpu_torch.main`` training ``cfg_path`` in a child
+    process, sent SIGTERM once its log shows step ``at_step``: (return code,
+    its output, seconds from the signal to its exit).  The child is killed
+    if it outlives ``timeout_s``."""
+    proc = subprocess.Popen([sys.executable, "-m", "ipoke_tpu_torch.main", "-c", cfg_path, "-m",
+                             name], cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, t_sig = [], None
+    timer = threading.Timer(timeout_s, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if t_sig is None and line.startswith(f"step {at_step}:"):
+                t_sig = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+        exit_s = time.perf_counter() - t_sig if t_sig is not None else float("nan")
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, "".join(lines), exit_s
+
+
+def phase_resume(device, card, entry, tmp, steps=RESUME_STEPS):
+    """Resumption at full width and depth (``entry``, B=8, the train
+    phase's config): stage-2 training through ``python -m
+    ipoke_tpu_torch.main`` in a child process, sent SIGTERM once its log
+    shows step RESUME_SIGNAL_AT; it must exit 0 with ``last.npz`` saved
+    after the step in flight (``preempted: True`` and that step).  Then
+    ``main --resume --max-steps steps`` in this process, the launch counters
+    zeroed just before it and read just after: the train state restored from
+    that ``last.npz`` must equal it bitwise (params, moments, counts), the
+    first resumed step must run at the schedule's lr of the saved count, and
+    the run must go on from the saved step for ``steps`` steps (the eval
+    phase's resumed run holds ``metrics.jsonl`` going on: with JAX's
+    ``log_every`` of 50 these steps write no record).  Prints the seconds from
+    the signal to the child's exit, the load and restore seconds, the first
+    resumed step's ms and the checkpoint's GB."""
+    t_phase = time.perf_counter()
+    config = train_config(entry, steps=RESUME_EPOCH)
+    config["general"].update(experiment="second_stage", base_dir=os.path.join(tmp, "logs"))
+    config["training"].update(max_batches_per_epoch=RESUME_EPOCH)
+    cfg_path = _write_config(os.path.join(tmp, "resume.yaml"), config)
+    rc, out, exit_s = _preempt(cfg_path, "resume", RESUME_SIGNAL_AT)
+    stepped = [int(m) for m in re.findall(r"^step (\d+):", out, re.M)]
+    ckpt_dir = os.path.join(tmp, "logs", "second_stage", "ckpt", "resume", "0")
+    last = os.path.join(ckpt_dir, "last.npz")
+    meta = _npz_meta(last) if os.path.exists(last) else None
+    ckpt_gb = os.path.getsize(last) / 1e9 if meta else float("nan")
+    log(f"resume [{card}]: preempted run (child process, {entry.name} full width): steps "
+        f"{stepped}, SIGTERM once step {RESUME_SIGNAL_AT} was logged; exit code {rc} "
+        f"{exit_s:.1f} s after the signal; last.npz {ckpt_gb:.2f} GB, metadata {meta}")
+    if (rc != 0 or not stepped or meta != {"step": stepped[-1], "preempted": True}
+            or not RESUME_SIGNAL_AT <= stepped[-1] <= RESUME_SIGNAL_AT + 1):
+        raise SystemExit(f"resume: the preempted run did not save after the step in flight "
+                         f"(rc {rc}, meta {meta}):\n{out[-4000:]}")
+    k = stepped[-1]
+
+    restore, checked, lrs = experiment.restore_train_state, {}, []
+
+    def checking(tree, optimizer, template, spec, dev=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = restore(tree, optimizer, template, spec, dev)
+        torch.cuda.synchronize()
+        checked["restore_s"] = time.perf_counter() - t0
+        a, b = io._flatten(experiment.ckpt_tree(state, optimizer, spec)), io._flatten(tree)
+        bad = [key for key in b if key not in a or np.asarray(a[key]).dtype != np.asarray(b[key]).dtype
+               or not np.array_equal(a[key], b[key])]
+        checked.update(leaves=len(b), bad=bad + sorted(a.keys() - b.keys()),
+                       counts=[s.get("count") for s in state.opt_state], step=state.step)
+        return state
+
+    def recording(self, updates, state, params):
+        lrs.append((state["count"], self.schedule(state["count"])))
+        return schedule_update(self, updates, state, params)
+
+    schedule_update = train_ss._ScaleBySchedule.update
+    experiment.restore_train_state, train_ss._ScaleBySchedule.update = checking, recording
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        run = port_main.main(["-c", cfg_path, "-m", "resume", "--resume", "--max-steps",
+                              str(steps), "--device", "cuda"])
+        resume_s = time.perf_counter() - t0
+        n = _counts()
+    finally:
+        experiment.restore_train_state, train_ss._ScaleBySchedule.update = restore, schedule_update
+    cfg_t = config["training"]
+    schedule = lr_schedule(cfg_t["lr"], cfg_t["lr_scaling_max_it"],
+                           cfg_t["n_epochs"] * cfg_t["max_batches_per_epoch"])
+    hist = run["history"]
+    first_ms = hist[0]["step_s"] * 1e3 if hist else float("nan")
+    log(f"resume [{card}]: main --resume: restored step {checked.get('step')} from last.npz "
+        f"({run['resume'].get('load_s', float('nan')):.1f} s load, "
+        f"{checked.get('restore_s', float('nan')):.1f} s restore onto the card), "
+        f"{checked.get('leaves')} leaves checked, {len(checked.get('bad', [None]))} differ; "
+        f"optimizer counts {checked.get('counts')}; first resumed step at count/lr {lrs[:1]} "
+        f"(schedule({k}) = {schedule(k):.6g}, schedule(0) = {schedule(0):.6g}); steps "
+        f"{[round(h['step_s'] * 1e3, 1) for h in hist]} ms; "
+        f"last.npz saved in {run['save_s']:.1f} s; the resume {resume_s:.1f} s; K1/K2 "
+        f"launches {n[0]}/{n[1]}")
+    if (checked.get("bad") != [] or checked.get("step") != k or run["start_step"] != k
+            or run["state"].step != k + steps or not lrs or lrs[0] != (k, schedule(k))
+            or len(hist) != steps or n != (0, 0)
+            or not all(np.isfinite(h["flow_loss"]) for h in hist)):
+        raise SystemExit(f"resume: the resumed run is not the saved one going on: {checked}, "
+                         f"lr {lrs[:2]}, {len(hist)} steps run, K1/K2 {n}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"resume: the phase took {phase_s:.1f} s")
+    return {"phase_s": phase_s, "preempted_step": k, "signal_to_exit_s": exit_s,
+            "ckpt_gb": ckpt_gb, "load_s": run["resume"]["load_s"],
+            "restore_s": checked["restore_s"], "first_step_ms": first_ms,
+            "step_ms": [h["step_s"] * 1e3 for h in hist], "save_s": run["save_s"],
+            "resume_s": resume_s, "lr": lrs[0][1], "leaves_checked": checked["leaves"],
+            "launches": {"mcf_inverse": n[0], "macow_unit_inverse": n[1]}}
+
+
 def stage1_config(entry, b=BATCH, steps=STAGE1_STEPS):
     """An in-memory config that trains the first stage of the registry model
     ``entry`` at full width as configs/first_stage.yaml does (lr 2e-4, weight
@@ -1153,6 +1302,31 @@ def phase_eval(device, card, entry, spec, params, tmp):
                            for v in vals], "kept": kept, "best": os.path.basename(best),
                    "ckpt_mb": ckpt_mb, "train_s": train_s, "test": tested[key],
                    "launches": {"mcf_inverse": n_train[0], "macow_unit_inverse": n_train[1]}}
+
+    # --resume of the cut-depth run: it trains on from last.npz (step 2), and
+    # its next step is validated (K2) with a record in metrics.jsonl
+    _zero_counts()
+    t0 = time.perf_counter()
+    again = experiment.train(dict(cut, general=dict(cut["general"], restart=True)), dirs,
+                             device=device, max_steps=1)
+    again_s = time.perf_counter() - t0
+    n_again = _counts()
+    records = read_metrics(dirs["log"])
+    log(f"eval [{card}]: --resume of the cut-depth run: from step {again['start_step']} in "
+        f"{os.path.basename(again['ckpt_dir'])} (load {again['resume'].get('load_s', float('nan')):.2f} "
+        f"s, restore {again['resume'].get('restore_s', float('nan')):.2f} s), validations at steps "
+        f"{[v['step'] for v in again['val']]}; metrics.jsonl steps {[r['step'] for r in records]}; "
+        f"{again_s:.1f} s, K1/K2 launches {n_again[0]}/{n_again[1]} (want 0/{cut_units})")
+    if (again["start_step"] != 2 or again["ckpt_dir"] != run["ckpt_dir"]
+            or [v["step"] for v in again["val"]] != [3] or n_again != (0, cut_units)
+            or [r["step"] for r in records] != [1, 2, 2, 3] or "FVD-val" not in records[-1]):
+        raise SystemExit(f"eval: the resumed cut-depth run did not validate on: {again['val']}, "
+                         f"records {records}, K1/K2 {n_again}")
+    out["topk_resume"] = {"s": again_s, "start_step": again["start_step"],
+                          "val": [{k: v[k] for k in ("step", "FVD-val", "val_s")}
+                                  for v in again["val"]],
+                          "launches": {"mcf_inverse": n_again[0],
+                                       "macow_unit_inverse": n_again[1]}}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"eval: the phase took {out['phase_s']:.1f} s")
     return out
@@ -1163,7 +1337,7 @@ def phase_eval(device, card, entry, spec, params, tmp):
 # ---------------------------------------------------------------------------
 
 DATA_VIDEOS, DATA_FRAMES, DATA_STORED, DATA_GAPS = 4, 30, 256, (5, 10)
-DATA_BATCHES = 20          # loader batches timed per augment setting
+DATA_BATCHES = 10          # loader batches timed per augment setting (two epochs)
 AE_STEPS = 4               # timed encoder steps, after one warm-up step
 AE_BATCH = 16              # configs/img_encoder.yaml, configs/poke_encoder.yaml
 ENC_TOL = 2e-4             # the card's encoder step against the CPU's, relative to 1 + max|ref|
@@ -1537,6 +1711,9 @@ def main():
         ev = phase_eval(device, card, entry, spec, params, tmp)
     del params
     train = phase_train(device, card, entry)
+    torch.cuda.empty_cache()   # the child of the resume phase needs the train step's memory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        resume = phase_resume(device, card, entry, tmp)
     stage1 = phase_stage1(device, card, entry)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         data = phase_data(device, card, entry, train["step_ms_median"], tmp)
@@ -1555,6 +1732,8 @@ def main():
              **{f"eval_{m}_launches": ev[m]["launches"][name]
                 for m in ("run_fvd", "run_diversity", "run_samples", "validate", "test_fvd")},
              eval_topk_train_launches=ev["topk"]["launches"][name],
+             eval_topk_resume_launches=ev["topk_resume"]["launches"][name],
+             resume_train_step_launches=resume["launches"][name],
              eval_stage1_test_launches=stage1["test_launches"][name],
              image_ae_step_launches=data["img_encoder"]["launches"][name],
              poke_ae_step_launches=data["poke_encoder"]["launches"][name],
@@ -1572,6 +1751,7 @@ def main():
     print(json.dumps({"data": data}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)
     print(json.dumps({"stage1": stage1}, default=float), flush=True)
+    print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

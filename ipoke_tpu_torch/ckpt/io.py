@@ -72,12 +72,18 @@ def _unflatten(flat):
 
 
 def save(path, tree, metadata=None):
-    """Write ``tree`` (numpy leaves) to the npz ``path``."""
+    """Write ``tree`` (numpy leaves) to the npz ``path``: to ``<path>.tmp``
+    first, then renamed over ``path``, so an interrupted save leaves the old
+    file whole.  A path without ``.npz`` gets it, as ``np.savez`` adds it."""
+    path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = _flatten(tree)
     if metadata:
         flat["__metadata__"] = np.frombuffer(json.dumps(metadata).encode(), np.uint8)
-    np.savez(path, **flat)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
 
 
 def load(path):

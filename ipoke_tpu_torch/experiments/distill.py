@@ -12,7 +12,7 @@ student (``direct``: hidden, depth; ``flow``: num_steps, default one step per
 level) with optax's ``adam(distill.lr)`` on the config's data in JAX's order
 (``data/datamodule.StaticDataModule``), validates
 by ``distill-val`` (the held-out MSE or NLL) and keeps the top-k checkpoints
-and ``last.npz`` in JAX's npz layout.  ``test`` writes teacher and student
+and ``last.npz`` in JAX's npz layout, optax's state included.  ``test`` writes teacher and student
 videos of the first test batches side by side.
 """
 from __future__ import annotations
@@ -29,10 +29,11 @@ from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import (
     bridge_direct, bridge_flow, bridge_second_stage, unbridge_direct, unbridge_flow)
 from ipoke_tpu_torch.data.datamodule import StaticDataModule
-from ipoke_tpu_torch.data.loader import device_prefetch, to_device
-from ipoke_tpu_torch.experiments.base import debug_shrink
-from ipoke_tpu_torch.experiments.second_stage import (
-    build_spec_from_config, new_version_dir, version_dir)
+from ipoke_tpu_torch.ckpt.optax_layout import conform, from_optax, to_optax
+from ipoke_tpu_torch.data.loader import to_device
+from ipoke_tpu_torch.experiments import base
+from ipoke_tpu_torch.experiments.base import debug_shrink, fit, train_loader, version_dir
+from ipoke_tpu_torch.experiments.second_stage import build_spec_from_config
 from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.train import distill
@@ -117,15 +118,33 @@ def bridge_student(student, tree, device):
     return bridge_flow(tree, device)
 
 
+def make_optimizer(config, student):
+    """optax's ``adam(distill.lr)``; for a flow student under
+    ``multi_transform`` with the integer leaves frozen, as JAX's
+    ``make_distill_step`` wraps it."""
+    return train_ss.adam(float(config.get("distill", {}).get("lr", 1e-4)),
+                         masked=not isinstance(student, distill.DirectStudentSpec))
+
+
 def ckpt_tree(state, optimizer, student):
     """The distill state as JAX's checkpoint holds it: step, the student's
-    params in JAX's layout, and the optimizer state under the port's keys
-    (moments in the params' layout)."""
-    opt = {name: {k: (unbridge_student(student, v) if isinstance(v, (dict, list))
-                      else np.asarray(v)) for k, v in s.items()}
-           for name, s in optimizer.state_tree(state["opt"], state["params"]).items()}
-    return {"params": unbridge_student(student, state["params"]), "opt": opt,
+    params in JAX's layout, and optax's state (``ckpt/optax_layout``)."""
+    export = lambda tree: unbridge_student(student, tree)   # noqa: E731
+    return {"params": export(state["params"]),
+            "opt": to_optax(optimizer, state["opt"], state["params"], export),
             "step": np.asarray(state["step"], np.int32)}
+
+
+def restore_state(tree, optimizer, student, template, device=None):
+    """``ckpt_tree``'s inverse for a JAX or a port ``last.npz``: the student
+    must have ``template``'s keys and shapes (KeyError, ValueError)."""
+    device = resolve_device(device)
+    bridge = lambda t: bridge_student(student, t, device)   # noqa: E731
+    params = conform(template["params"], bridge(tree["params"]))
+    opt = from_optax(optimizer, tree["opt"], params, bridge)
+    for p in train_ss.float_leaves(params):
+        p.requires_grad_(True)
+    return {"params": params, "opt": opt, "step": int(tree["step"])}
 
 
 def validate(state, teacher, spec, student, config, device, datamod=None):
@@ -157,60 +176,74 @@ def validate(state, teacher, spec, student, config, device, datamod=None):
 def train(config, dirs, device=None, max_steps=None):
     """Distil as ``DistillExperiment.train`` does: the teacher's cond from
     ``embed_cond``, step i's z ``prng.normal(sub, z_shape)`` with ``rng, sub
-    = split(rng)`` from ``prng_key(seed + 1)``, validation every
-    ``val_every`` epochs' worth of steps and at each epoch's end, each
-    validation a top-k checkpoint (and ``last.npz``).  ``max_steps`` stops
-    early, with a validation at the stop.
+    = split(rng)`` from ``prng_key(seed + 1)``, on JAX's schedule
+    (``experiments/base.fit``): a validation every ``val_every`` epochs'
+    worth of steps and at each epoch's end, each a top-k checkpoint (and
+    ``last.npz``) and a record in ``<log dir>/metrics.jsonl``; the run log,
+    the save on SIGTERM/SIGINT and ``--resume`` as in
+    ``experiments/second_stage.train``.  JAX's ``fit`` reads no step from a
+    distill state (a dict), so its counter, and with it the schedule, the
+    checkpoint names and a preempted save's step, start at 0 on a resumed run
+    while the state's ``step`` goes on; the port does the same.
+    ``max_steps`` stops after that many steps of this run; ``last.npz`` is
+    written at the end too when the last step was not validated.
 
     Returns a dict: ``state``, ``student``, ``spec``, ``ckpt_dir``,
-    ``history`` (per step: its logs as floats) and ``val`` (per validation:
-    step and ``distill-val``)."""
+    ``resume``, ``preempted``, ``history`` (per step: its logs as floats)
+    and ``val`` (per validation: step and ``distill-val``)."""
     device = resolve_device(device)
     cfg_t = config.setdefault("training", {})
     debug_shrink(config)
     spec = build_spec_from_config(config)
     student = student_of(config, spec)
     teacher = load_teacher(config, dirs, spec, device)
-    opt = train_ss.adam(float(config.get("distill", {}).get("lr", 1e-4)))
+    opt = make_optimizer(config, student)
     init_state, dstep = distill.make_distill_step(spec, student, opt)
     state = init_state(prng.prng_key(_seed(config)), device)
-    ckpt_dir = new_version_dir(dirs["ckpt"])
+    ckpt_dir = base.run_dir(config, dirs)
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
+    run_log = base.run_logger(dirs)
+    resume = {}
+    state = base.maybe_resume(config, ckpt_dir, state,
+                              lambda tree: restore_state(tree, opt, student, state, device),
+                              timings=resume)
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 500))
-    n_epochs = int(cfg_t.get("n_epochs", 10))
-    val_every = int(steps_per_epoch * float(cfg_t.get("val_every", 1.0)))
     datamod = StaticDataModule(config["data"], datakeys=DATAKEYS)
-    rng = prng.prng_key(_seed(config) + 1)
+    run = {"state": state, "rng": prng.prng_key(_seed(config) + 1), "preempted": None}
+    del state
     history, vals = [], []
 
-    def run_validation():
-        metrics = validate(state, teacher, spec, student, config, device, datamod)
-        mgr.save_step(ckpt_tree(state, opt, student), state["step"], metrics[MONITOR])
-        vals.append({"step": state["step"], **metrics})
-        log.info("step %d: %s=%.6g", state["step"], MONITOR, metrics[MONITOR])
+    def step(batch):
+        run["rng"], sub = prng.split(run["rng"])
+        x0 = batch["images"][:, 0]
+        cond = second_stage.embed_cond(teacher, spec, x0, batch["poke"])
+        z = prng.normal(sub, _z_shape(spec, student, x0.shape[0]), device)
+        run["state"], logs = dstep(run["state"], teacher, z, cond)
+        history.append({k: float(v) for k, v in logs.items()})
+        log.info("step %d: %s", run["state"]["step"], " ".join(
+            f"{k}={v:.4f}" for k, v in history[-1].items()))
+        return history[-1]
 
-    total = n_epochs * steps_per_epoch if max_steps is None else min(max_steps, n_epochs * steps_per_epoch)
-    for epoch in range(n_epochs):
-        batches = device_prefetch(datamod.loader("train"), device, BATCH_KEYS)
-        for bi, batch in enumerate(batches):
-            if bi >= steps_per_epoch or state["step"] >= total:
-                break
-            rng, sub = prng.split(rng)
-            x0 = batch["images"][:, 0]
-            cond = second_stage.embed_cond(teacher, spec, x0, batch["poke"])
-            z = prng.normal(sub, _z_shape(spec, student, x0.shape[0]), device)
-            state, logs = dstep(state, teacher, z, cond)
-            history.append({k: float(v) for k, v in logs.items()})
-            log.info("epoch %d step %d: %s", epoch, state["step"], " ".join(
-                f"{k}={v:.4f}" for k, v in history[-1].items()))
-            if val_every and state["step"] % val_every == 0:
-                run_validation()
-        run_validation()
-        if state["step"] >= total:
-            break
-    return {"state": state, "student": student, "spec": spec, "ckpt_dir": ckpt_dir,
-            "history": history, "val": vals}
+    def run_validation(step_i):
+        metrics = validate(run["state"], teacher, spec, student, config, device, datamod)
+        if MONITOR in metrics:
+            mgr.save_step(ckpt_tree(run["state"], opt, student), step_i, metrics[MONITOR])
+        vals.append({"step": step_i, **metrics})
+        log.info("step %d: %s=%.6g", step_i, MONITOR, metrics[MONITOR])
+        return metrics
+
+    n_steps = fit(step, int(cfg_t.get("n_epochs", 10)), train_loader(datamod, device, BATCH_KEYS),
+                  steps_per_epoch, validate=run_validation,
+                  val_every_steps=int(steps_per_epoch * float(cfg_t.get("val_every", 1.0))),
+                  max_steps=max_steps, run_log=run_log,
+                  save_preempted=base.preempt_saver(
+                      ckpt_dir, lambda: ckpt_tree(run["state"], opt, student), run))
+    if run["preempted"] is None and (not vals or vals[-1]["step"] != n_steps):
+        io.save(os.path.join(ckpt_dir, "last.npz"), ckpt_tree(run["state"], opt, student),
+                metadata={"step": n_steps})
+    return {"state": run["state"], "student": student, "spec": spec, "ckpt_dir": ckpt_dir,
+            "resume": resume, "preempted": run["preempted"], "history": history, "val": vals}
 
 
 def test(config, dirs, device=None):

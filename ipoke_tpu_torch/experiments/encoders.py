@@ -28,8 +28,9 @@ from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.data.datamodule import StaticDataModule
 from ipoke_tpu_torch.data.loader import to_device
-from ipoke_tpu_torch.experiments.base import debug_shrink, fit, train_loader
-from ipoke_tpu_torch.experiments.second_stage import new_version_dir, version_dir
+from ipoke_tpu_torch.ckpt.optax_layout import conform
+from ipoke_tpu_torch.experiments import base
+from ipoke_tpu_torch.experiments.base import debug_shrink, fit, train_loader, version_dir
 from ipoke_tpu_torch.metrics.lpips import lpips
 from ipoke_tpu_torch.models import encoders
 from ipoke_tpu_torch.models.discriminators import PatchDiscSpec
@@ -118,17 +119,33 @@ def ckpt_tree(state):
             else train_enc.poke_ae_ckpt_tree(state))
 
 
+def restore_state(tree, template, device=None):
+    """``ckpt_tree``'s inverse (``train/encoders.restore_*``) for a JAX or a
+    port ``last.npz``; its nets must have ``template``'s keys and shapes
+    (KeyError, ValueError).  The restored trees keep the npz's key order,
+    which their optimizer state follows."""
+    if isinstance(template, train_enc.AETrainState):
+        state = train_enc.restore_image_ae(tree, device)
+        conform(template.disc_params, state.disc_params)
+    else:
+        state = train_enc.restore_poke_ae(tree, device)
+    conform(template.params, state.params)
+    return state
+
+
 def train(config, dirs, device=None, max_steps=None):
     """Train as ``ImageEncoderExperiment.train`` / ``PokeEncoderExperiment.
     train`` do: the state from ``prng_key(seed)``, step i's key ``rng, sub
     = split(rng)``, ``max_batches_per_epoch`` batches of a fresh
     ``loader("train")`` per epoch, a validation at each epoch's end that
-    keeps the top-k checkpoints and ``last.npz`` in a fresh version
-    directory; ``last.npz`` is written at the end too when the last step was
-    not validated.  ``max_steps`` stops early.
+    keeps the top-k checkpoints and ``last.npz`` and logs its metrics to
+    ``<log dir>/metrics.jsonl``; ``last.npz`` is written at the end too when
+    the last step was not validated.  The run log, the save on
+    SIGTERM/SIGINT and ``--resume`` are ``experiments/second_stage.train``'s.
+    ``max_steps`` stops after that many steps of this run.
 
     Returns a dict: ``state``, ``spec``, ``ckpt`` (the path of last.npz),
-    ``ckpt_dir``, ``history`` (per step: its logs as floats and ``step_s``,
+    ``ckpt_dir``, ``start_step``, ``resume``, ``preempted``, ``history`` (per step: its logs as floats and ``step_s``,
     host seconds to a synchronised device) and ``val`` (per validation:
     ``step``, ``lpips-val``, ``val_s``)."""
     device = resolve_device(device)
@@ -144,11 +161,17 @@ def train(config, dirs, device=None, max_steps=None):
         step_fn = train_enc.make_poke_ae_step(
             spec, opts, flow_ae=bool(config["architecture"].get("flow_ae", False)))
     datamod = StaticDataModule(config["data"], datakeys=DATAKEYS[kind])
-    ckpt_dir = new_version_dir(dirs["ckpt"])
+    ckpt_dir = base.run_dir(config, dirs)
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
+    run_log = base.run_logger(dirs)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    run = {"state": state, "rng": prng.prng_key(int(config["general"].get("seed", 42)))}
+    resume = {}
+    state = base.maybe_resume(config, ckpt_dir, state,
+                              lambda tree: restore_state(tree, state, device), timings=resume)
+    run = {"state": state, "rng": prng.prng_key(int(config["general"].get("seed", 42))),
+           "preempted": None}
+    del state
     history, vals = [], []
 
     def step(batch):
@@ -157,26 +180,33 @@ def train(config, dirs, device=None, max_steps=None):
         t0 = time.perf_counter()
         run["state"], logs = step_fn(run["state"], batch, sub)
         sync()
-        history.append(dict({k: float(v) for k, v in logs.items()},
-                            step_s=time.perf_counter() - t0))
+        logs = {k: float(v) for k, v in logs.items()}
+        history.append(dict(logs, step_s=time.perf_counter() - t0))
         log.info("step %d: %s", run["state"].step, " ".join(
             f"{k}={v:.4f}" for k, v in list(history[-1].items())[:4]))
+        return logs
 
     def run_validation(step_i):
         t0 = time.perf_counter()
         metrics = validate(run["state"].params, spec, config, datamod)
-        mgr.save_step(ckpt_tree(run["state"]), step_i, metrics[MONITOR])
+        if MONITOR in metrics:
+            mgr.save_step(ckpt_tree(run["state"]), step_i, metrics[MONITOR])
         vals.append(dict(metrics, step=step_i, val_s=time.perf_counter() - t0))
         log.info("step %d: %s=%.6g", step_i, MONITOR, metrics[MONITOR])
+        return metrics
 
+    start_step = run["state"].step
     n_steps = fit(step, int(cfg_t.get("n_epochs", 100)),
                   train_loader(datamod, device, BATCH_KEYS[kind]),
                   int(cfg_t.get("max_batches_per_epoch", 2000)), validate=run_validation,
-                  max_steps=max_steps)
+                  max_steps=max_steps, start_step=start_step, run_log=run_log,
+                  save_preempted=base.preempt_saver(ckpt_dir, lambda: ckpt_tree(run["state"]),
+                                                    run))
     ckpt = os.path.join(ckpt_dir, "last.npz")
-    if not vals or vals[-1]["step"] != n_steps:
+    if run["preempted"] is None and (not vals or vals[-1]["step"] != n_steps):
         io.save(ckpt, ckpt_tree(run["state"]), metadata={"step": run["state"].step})
     return {"state": run["state"], "spec": spec, "ckpt": ckpt, "ckpt_dir": ckpt_dir,
+            "start_step": start_step, "resume": resume, "preempted": run["preempted"],
             "history": history, "val": vals}
 
 

@@ -27,10 +27,11 @@ import torch
 from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, unbridge_gan_params
+from ipoke_tpu_torch.ckpt.optax_layout import conform, from_optax, to_optax
 from ipoke_tpu_torch.data.datamodule import StaticDataModule
 from ipoke_tpu_torch.eval.test_modes import Clock, params_device
-from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader
-from ipoke_tpu_torch.experiments.second_stage import new_version_dir, version_dir
+from ipoke_tpu_torch.experiments import base
+from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader, version_dir
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.metrics.image import psnr, ssim_video
 from ipoke_tpu_torch.metrics.lpips import lpips_video
@@ -73,19 +74,33 @@ def specs_from_config(config):
 def ckpt_tree(state: train_fs.GanTrainState, optimizers):
     """The train state as JAX's ``_ckpt_tree`` holds a ``GanTrainState``:
     step, the three nets in JAX's layout (``u`` included), and each
-    optimizer's state under the port's keys (moments in the layout of the
-    net without ``u``)."""
+    optimizer's state in optax's layout (``ckpt/optax_layout``; ``u`` masked)."""
     tree = {"step": np.asarray(state.step, np.int32)}
-    tree.update(unbridge_gan_params({f"{n}_params": getattr(state, f"{n}_params")
-                                     for n in train_fs.NETS}))
     for n in train_fs.NETS:
-        trainable = train_fs.trainable(getattr(state, f"{n}_params"))
-        opt = optimizers[n].state_tree(getattr(state, f"{n}_opt"), trainable)
-        tree[f"{n}_opt"] = {
-            name: {k: (unbridge_gan_params({f"{n}_params": v})[f"{n}_params"]
-                       if isinstance(v, dict) else np.asarray(v)) for k, v in s.items()}
-            for name, s in opt.items()}
+        key = f"{n}_params"
+        export = lambda t, key=key: unbridge_gan_params({key: t})[key]   # noqa: E731
+        params = getattr(state, key)
+        tree[key] = export(params)
+        tree[f"{n}_opt"] = to_optax(optimizers[n], getattr(state, f"{n}_opt"), params, export)
     return tree
+
+
+def restore_gan_state(tree, optimizers, template: train_fs.GanTrainState, device=None):
+    """``ckpt_tree``'s inverse: a ``GanTrainState`` on ``device`` from the
+    tree of a JAX or a port ``last.npz``, ``u`` kept and the trainable leaves
+    requiring grad; the nets must have ``template``'s keys and shapes
+    (KeyError, ValueError)."""
+    device = resolve_device(device)
+    nets, opts = {}, {}
+    for n in train_fs.NETS:
+        key = f"{n}_params"
+        bridge = lambda t, key=key: bridge_gan_params({key: t}, device)[key]   # noqa: E731
+        nets[n] = conform(getattr(template, key), bridge(tree[key]))
+        opts[n] = from_optax(optimizers[n], tree[f"{n}_opt"], nets[n], bridge)
+        for leaf in train_fs.float_leaves(train_fs.trainable(nets[n])):
+            leaf.requires_grad_(True)
+    return train_fs.GanTrainState(int(tree["step"]), *(nets[n] for n in train_fs.NETS),
+                                  *(opts[n] for n in train_fs.NETS))
 
 
 def _check_baseline(config):
@@ -142,14 +157,18 @@ def train(config, dirs, device=None, max_steps=None):
     (``experiments/base.fit``; JAX's stage 1 has no step schedule), each
     validation keeping the top
     ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
-    a fresh version directory, in JAX's layout; ``last.npz`` is written at
-    the end too when the last step was not validated.
+    JAX's layout and logging its metrics to ``<log dir>/metrics.jsonl``;
+    ``last.npz`` is written at the end too when the last step was not
+    validated.  The run log, the save on SIGTERM/SIGINT and ``--resume``
+    (``general.restart``: the newest version's ``last.npz``, the step
+    counter going on from it) are ``experiments/second_stage.train``'s.
 
     The state from ``init_gan_state(prng_key(seed))``; the optimizers and
     loss weights from the ``training`` section; the key of step i is
-    ``rng, sub = split(rng)``.  ``max_steps`` stops early.  Returns a dict: ``state``,
-    ``specs``, ``ckpt`` (the path of last.npz), ``ckpt_dir``, ``init_s``,
-    ``save_s``, ``history`` (per step: its metrics as floats and ``step_s``,
+    ``rng, sub = split(rng)``.  ``max_steps`` stops after that many steps of
+    this run.  Returns a dict: ``state``, ``specs``, ``ckpt`` (the path of
+    last.npz), ``ckpt_dir``, ``init_s``, ``save_s``, ``start_step``,
+    ``resume``, ``preempted`` (as ``second_stage.train``'s), ``history`` (per step: its metrics as floats and ``step_s``,
     host seconds to a synchronised device) and ``val`` (per validation:
     ``step``, its metrics, ``val_s`` and ``save_s``).
     """
@@ -173,10 +192,16 @@ def train(config, dirs, device=None, max_steps=None):
         w_l1=float(cfg_t.get("w_l1", 10.0)), w_kl=float(cfg_t.get("w_kl", 1e-7)),
         n_spatial_examples=n_spatial, remat=bool(cfg_t.get("remat", False)))
     datamod = StaticDataModule(config["data"])
-    ckpt_dir = new_version_dir(dirs["ckpt"])
+    ckpt_dir = base.run_dir(config, dirs)
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
-    run = {"state": state, "rng": prng.prng_key(seed)}
+    run_log = base.run_logger(dirs)
+    resume = {}
+    state = base.maybe_resume(config, ckpt_dir, state,
+                              lambda tree: restore_gan_state(tree, opts, state, device),
+                              timings=resume)
+    run = {"state": state, "rng": prng.prng_key(seed), "preempted": None}
+    del state
     history, vals = [], []
 
     def step(batch):
@@ -185,30 +210,38 @@ def train(config, dirs, device=None, max_steps=None):
         t0 = time.perf_counter()
         run["state"], metrics = step_fn(run["state"], batch, sub)
         sync()
-        history.append(dict({k: float(v) for k, v in metrics.items()},
-                            step_s=time.perf_counter() - t0))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        history.append(dict(metrics, step_s=time.perf_counter() - t0))
         log.info("step %d: %s", run["state"].step, " ".join(
             f"{k}={history[-1][k]:.4f}" for k in ("loss", "loss_d_dt", "loss_d_ds", "l_rec")))
+        return metrics
 
     def run_validation(step_i):
         t0 = time.perf_counter()
         metrics = validate(run["state"].gen_params, fs_spec, config, datamod)
         val_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mgr.save_step(ckpt_tree(run["state"], opts), step_i, metrics[MONITOR])
+        if MONITOR in metrics:
+            mgr.save_step(ckpt_tree(run["state"], opts), step_i, metrics[MONITOR])
         vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
         log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+        return metrics
 
+    start_step = run["state"].step
     n_steps = fit(step, int(cfg_t.get("n_epochs", 100)),
                   train_loader(datamod, device, ("images",)), steps_per_epoch,
-                  validate=run_validation, max_steps=max_steps)
+                  validate=run_validation, max_steps=max_steps, start_step=start_step,
+                  run_log=run_log,
+                  save_preempted=base.preempt_saver(
+                      ckpt_dir, lambda: ckpt_tree(run["state"], opts), run))
     state = run["state"]
     ckpt = os.path.join(ckpt_dir, "last.npz")
     t0 = time.perf_counter()
-    if not vals or vals[-1]["step"] != n_steps:
+    if run["preempted"] is None and (not vals or vals[-1]["step"] != n_steps):
         io.save(ckpt, ckpt_tree(state, opts), metadata={"step": state.step})
     return {"state": state, "specs": (fs_spec, ds_spec, dt_spec), "ckpt": ckpt,
             "ckpt_dir": ckpt_dir, "init_s": init_s, "save_s": time.perf_counter() - t0,
+            "start_step": start_step, "resume": resume, "preempted": run["preempted"],
             "history": history, "val": vals}
 
 

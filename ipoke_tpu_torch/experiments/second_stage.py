@@ -29,10 +29,12 @@ import torch
 from ipoke_tpu_torch import registry, resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage, unbridge_second_stage
+from ipoke_tpu_torch.ckpt.optax_layout import conform, from_optax, to_optax
 from ipoke_tpu_torch.data.datamodule import StaticDataModule
 from ipoke_tpu_torch.data.loader import to_device
 from ipoke_tpu_torch.eval import test_modes
-from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader
+from ipoke_tpu_torch.experiments import base
+from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader, version_dir
 from ipoke_tpu_torch.flows.loss import flow_loss
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.models import second_stage
@@ -93,19 +95,6 @@ def build_spec_from_config(config, mcf_backend: str = "cuda_unit") -> SecondStag
                                  mcf_backend=mcf_backend).validate()
 
 
-def version_dir(ckpt_root):
-    """The version directory a test or serving run reads: the newest integer
-    directory under ``ckpt_root`` that holds a checkpoint, else the newest,
-    else ``0``."""
-    existing = ([int(d) for d in os.listdir(ckpt_root) if d.isdigit()]
-                if os.path.isdir(ckpt_root) else [])
-    if not existing:
-        return os.path.join(ckpt_root, "0")
-    with_ckpt = [v for v in sorted(existing, reverse=True)
-                 if io.find_best(os.path.join(ckpt_root, str(v)))]
-    return os.path.join(ckpt_root, str(with_ckpt[0] if with_ckpt else max(existing)))
-
-
 def _seed(config):
     return int(config["general"].get("seed", 42))
 
@@ -159,24 +148,27 @@ def load_for_serving(config, dirs, device=None):
     return _bridge_and_fill(tree, config, spec, device), spec
 
 
-def new_version_dir(ckpt_root):
-    """A fresh training run's version directory: one past the newest."""
-    existing = ([int(d) for d in os.listdir(ckpt_root) if d.isdigit()]
-                if os.path.isdir(ckpt_root) else [])
-    path = os.path.join(ckpt_root, str(max(existing) + 1 if existing else 0))
-    os.makedirs(path, exist_ok=True)
-    return path
-
-
 def ckpt_tree(state, optimizer, spec):
-    """The train state as JAX's ``_ckpt_tree`` holds it: step, the trainable
-    params in JAX's layout, and the optimizer state under the port's keys
-    (moments in the params' layout)."""
-    opt = {name: {k: (unbridge_second_stage(v, spec) if isinstance(v, dict) else np.asarray(v))
-                  for k, v in s.items()}
-           for name, s in optimizer.state_tree(state.opt_state, state.params).items()}
-    return {"step": np.asarray(state.step, np.int32),
-            "params": unbridge_second_stage(state.params, spec), "opt_state": opt}
+    """The train state as JAX's ``_ckpt_tree`` holds a ``TrainState`` (or,
+    under ``training.chunked``, a ``ChunkedTrainState``): step, the trainable
+    params in JAX's layout, and optax's ``opt_state`` (``ckpt/optax_layout``)."""
+    export = lambda tree: unbridge_second_stage(tree, spec)   # noqa: E731
+    return {"step": np.asarray(state.step, np.int32), "params": export(state.params),
+            "opt_state": to_optax(optimizer, state.opt_state, state.params, export)}
+
+
+def restore_train_state(tree, optimizer, template, spec, device=None):
+    """``ckpt_tree``'s inverse: a ``TrainState`` on ``device`` from the tree
+    of a JAX or a port ``last.npz``, its float leaves requiring grad.  The
+    params must have ``template``'s keys and shapes (KeyError, ValueError),
+    the optimizer state ``optimizer``'s chain (KeyError)."""
+    device = resolve_device(device)
+    bridge = lambda t: bridge_second_stage(t, spec, device)   # noqa: E731
+    params = conform(template.params, bridge(tree["params"]))
+    opt_state = from_optax(optimizer, tree["opt_state"], params, bridge)
+    for p in train_ss.float_leaves(params):
+        p.requires_grad_(True)
+    return train_ss.TrainState(int(tree["step"]), params, opt_state)
 
 
 @torch.no_grad()
@@ -213,28 +205,47 @@ def validate(params, spec, config, datamod, timings=None):
     return {"FVD-val": fvd_val, "flow_loss-val": float(np.mean(losses)) if losses else float("nan")}
 
 
+# the metrics of JAX's chunked step (train/chunked.make_chunked_trainer)
+CHUNKED_METRICS = ("flow_loss", "nll_loss", "nlogdet_loss")
+
+
 def train(config, dirs, device=None, max_steps=None):
     """Train the flow as ``SecondStageExperiment.train`` does, on the
     batches of ``StaticDataModule(config["data"]).loader("train")`` in JAX's
     order (a fresh loader per epoch, at most ``max_batches_per_epoch``
     batches of it), validated on JAX's schedule: every ``val_every_steps
     = max_batches_per_epoch * training.val_every`` steps and at each epoch's
-    end (``experiments/base.fit``).  Each validation keeps the top
-    ``logging.n_saved_ckpt`` checkpoints by ``FVD-val`` and ``last.npz`` in
-    a fresh version directory, in JAX's layout (``CheckpointManager``);
-    ``last.npz`` is written at the end too when the last step was not
-    validated.
+    end (``experiments/base.fit``).  Each validation appends its metrics to
+    ``<log dir>/metrics.jsonl`` and keeps the top ``logging.n_saved_ckpt``
+    checkpoints by ``FVD-val`` and ``last.npz`` in JAX's layout
+    (``CheckpointManager``); every 50 steps, as JAX's, the
+    step's metrics go there with the prefix ``train/``.  ``last.npz`` is
+    written at the end too when the last step was not validated, and on
+    SIGTERM/SIGINT after the step in flight, with ``preempted: True``.
+
+    A fresh run trains in a new version directory.  With
+    ``general.restart`` (``--resume``) it trains on in the newest version
+    that holds a checkpoint, from the full train state of its ``last.npz``
+    (a JAX or a port one): the step counter goes on from the saved step,
+    while the epochs and the key start again, as JAX's do.
 
     Params from ``init_params``; ``make_optimizer`` from the ``training``
     section; ``min_acc_batch_size`` sets the microbatches; the key of step i
-    is ``rng, sub = split(rng)`` from ``prng_key(seed)``.  ``max_steps``
-    stops early.
+    is ``rng, sub = split(rng)`` from ``prng_key(seed)``.  With
+    ``training.chunked``, JAX's per-level trainer's semantics on the port's
+    one-graph step: only ``flow`` trains (every other key frozen), with
+    ``make_optimizer(lr, weight_decay, warmup, total)`` (no clip, adabelief,
+    adamw or amsgrad), one microbatch, JAX's three step metrics, and a
+    ``ChunkedTrainState`` checkpoint.  ``max_steps`` stops after that many
+    steps of this run.
 
     Returns a dict: ``state``, ``frozen``, ``spec``, ``ckpt`` (the path of
-    last.npz), ``ckpt_dir``, ``init_s``, ``save_s``, ``history`` (per step:
-    its metrics as floats and ``step_s``, host seconds to a synchronised
-    device) and ``val`` (per validation: ``step``, its metrics, ``val_s``
-    and ``save_s``).
+    last.npz), ``ckpt_dir``, ``init_s``, ``save_s``, ``start_step``,
+    ``resume`` (``load_s``/``restore_s`` of a resume), ``preempted`` (the
+    step of a save on a signal, else None), ``history`` (per step: its
+    metrics as floats and ``step_s``, host seconds to a synchronised device)
+    and ``val`` (per validation: ``step``, its metrics, ``val_s`` and
+    ``save_s``).
     """
     device = resolve_device(device)
     cfg_t = config.setdefault("training", {})
@@ -246,30 +257,46 @@ def train(config, dirs, device=None, max_steps=None):
     sync()
     init_s = time.perf_counter() - t0
     trainable, frozen = train_ss.split_params(params)
+    del params
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 2000))
     n_epochs = int(cfg_t.get("n_epochs", 100))
-    opt = train_ss.make_optimizer(
-        lr=float(cfg_t.get("lr", 1e-3)),
-        weight_decay=float(cfg_t.get("weight_decay", 1e-5)),
-        warmup_steps=int(cfg_t.get("lr_scaling_max_it", 500)),
-        total_steps=n_epochs * steps_per_epoch,
-        clip_grad_norm=float(cfg_t.get("clip_grad_norm", 0.0)),
-        use_adabelief=bool(cfg_t.get("use_adabelief", cfg_t.get("adabelief", False))),
-        use_adamw=bool(cfg_t.get("use_adamw", False)),
-        amsgrad=bool(cfg_t.get("amsgrad", False)),
-    )
-    data_cfg = config["data"]
-    batch_size = int(data_cfg.get("batch_size", 8))
-    min_acc = int(cfg_t.get("min_acc_batch_size", 0))
-    n_micro = max(1, -(-min_acc // batch_size)) if min_acc > batch_size else 1
+    opt_kw = dict(lr=float(cfg_t.get("lr", 1e-3)),
+                  weight_decay=float(cfg_t.get("weight_decay", 1e-5)),
+                  warmup_steps=int(cfg_t.get("lr_scaling_max_it", 500)),
+                  total_steps=n_epochs * steps_per_epoch)
+    chunked = bool(cfg_t.get("chunked"))
+    if chunked:
+        if spec.augment_channels or spec.use_flow_as_poke:
+            raise ValueError("training.chunked: JAX's chunked trainer embeds batch['poke'] and "
+                             "has no augment channels")
+        frozen.update({k: v for k, v in trainable.items() if k != "flow"})
+        trainable = {"flow": trainable["flow"]}
+        opt = train_ss.make_optimizer(**opt_kw)
+        n_micro = 1
+    else:
+        opt = train_ss.make_optimizer(
+            **opt_kw, clip_grad_norm=float(cfg_t.get("clip_grad_norm", 0.0)),
+            use_adabelief=bool(cfg_t.get("use_adabelief", cfg_t.get("adabelief", False))),
+            use_adamw=bool(cfg_t.get("use_adamw", False)), amsgrad=bool(cfg_t.get("amsgrad", False)))
+        batch_size = int(config["data"].get("batch_size", 8))
+        min_acc = int(cfg_t.get("min_acc_batch_size", 0))
+        n_micro = max(1, -(-min_acc // batch_size)) if min_acc > batch_size else 1
     step_fn = train_ss.make_train_step(
         spec, frozen, opt, spatial_mean=bool(cfg_t.get("spatial_mean", False)),
         logdet_weight=float(cfg_t.get("logdet_weight", 1.0)), n_microbatches=n_micro)
-    datamod = StaticDataModule(data_cfg, datakeys=DATAKEYS)
-    ckpt_dir = new_version_dir(dirs["ckpt"])
+    datamod = StaticDataModule(config["data"], datakeys=DATAKEYS)
+    ckpt_dir = base.run_dir(config, dirs)
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
                                top_k=int(config.get("logging", {}).get("n_saved_ckpt", 5)))
-    run = {"state": train_ss.init_state(trainable, opt), "rng": prng.prng_key(_seed(config))}
+    run_log = base.run_logger(dirs)
+    state = train_ss.init_state(trainable, opt)
+    del trainable   # the init's tensors go once a resume replaces them
+    resume = {}
+    state = base.maybe_resume(
+        config, ckpt_dir, state,
+        lambda tree: restore_train_state(tree, opt, state, spec, device), timings=resume)
+    run = {"state": state, "rng": prng.prng_key(_seed(config)), "preempted": None}
+    del state
     history, vals = [], []
 
     def step(batch):
@@ -278,31 +305,39 @@ def train(config, dirs, device=None, max_steps=None):
         t0 = time.perf_counter()
         run["state"], metrics = step_fn(run["state"], batch, sub)
         sync()
-        history.append(dict({k: float(v) for k, v in metrics.items()},
-                            step_s=time.perf_counter() - t0))
+        metrics = {k: float(v) for k, v in metrics.items()
+                   if not chunked or k in CHUNKED_METRICS}
+        history.append(dict(metrics, step_s=time.perf_counter() - t0))
         log.info("step %d: %s", run["state"].step, " ".join(
             f"{k}={v:.4f}" for k, v in list(history[-1].items())[:4]))
+        return metrics
 
     def run_validation(step_i):
         t0 = time.perf_counter()
         metrics = validate({**frozen, **run["state"].params}, spec, config, datamod)
         val_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mgr.save_step(ckpt_tree(run["state"], opt, spec), step_i, metrics[MONITOR])
+        if MONITOR in metrics:
+            mgr.save_step(ckpt_tree(run["state"], opt, spec), step_i, metrics[MONITOR])
         vals.append(dict(metrics, step=step_i, val_s=val_s, save_s=time.perf_counter() - t0))
         log.info("step %d: %s", step_i, " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+        return metrics
 
+    start_step = run["state"].step
     n_steps = fit(step, n_epochs, train_loader(datamod, device, BATCH_KEYS), steps_per_epoch,
                   validate=run_validation,
                   val_every_steps=int(steps_per_epoch * float(cfg_t.get("val_every", 1.0))),
-                  max_steps=max_steps)
+                  max_steps=max_steps, start_step=start_step, run_log=run_log,
+                  save_preempted=base.preempt_saver(
+                      ckpt_dir, lambda: ckpt_tree(run["state"], opt, spec), run))
     state = run["state"]
     ckpt = os.path.join(ckpt_dir, "last.npz")
     t0 = time.perf_counter()
-    if not vals or vals[-1]["step"] != n_steps:
+    if run["preempted"] is None and (not vals or vals[-1]["step"] != n_steps):
         io.save(ckpt, ckpt_tree(state, opt, spec), metadata={"step": state.step})
     return {"state": state, "frozen": frozen, "spec": spec, "ckpt": ckpt, "ckpt_dir": ckpt_dir,
-            "init_s": init_s, "save_s": time.perf_counter() - t0, "history": history, "val": vals}
+            "init_s": init_s, "save_s": time.perf_counter() - t0, "start_step": start_step,
+            "resume": resume, "preempted": run["preempted"], "history": history, "val": vals}
 
 
 def test(config, dirs, mode=None, device=None, timings=None):

@@ -3,12 +3,18 @@
     python -m ipoke_tpu_torch.main -c configs/second_stage.yaml -m my_model
     python -m ipoke_tpu_torch.main -c ... -m my_model --test fvd
     python -m ipoke_tpu_torch.main -c configs/img_encoder.yaml -m cond --device cpu
+    python -m ipoke_tpu_torch.main -c configs/second_stage.yaml -m my_model --resume
 
 Loads the config with ``config.load_parameters`` and trains, or tests with
 ``--test MODE``, the experiment ``general.experiment`` names
-(``experiments.select_experiment``).  It runs on the CUDA card unless
-``--device cpu`` is given.  A test mode the port lacks raises
-``NotImplementedError`` naming its ROADMAP item, as ``--resume`` does.
+(``experiments.select_experiment``).  ``--resume`` trains on from the
+run's ``last.npz`` (the newest version directory that holds a checkpoint;
+the run's saved config wins over ``-c``), as JAX's ``main.py``'s
+``restart``.  Every trainer appends its records to
+``<base_dir>/<experiment>/log/<model>/metrics.jsonl``, and on SIGTERM or
+SIGINT saves ``last.npz`` after the step in flight and exits.  It runs on
+the CUDA card unless ``--device cpu`` is given.  A test mode the port lacks
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,8 +47,6 @@ def main(argv=None):
     trainer's dict) or the test's result."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP queue 1 item 2)")
     from ipoke_tpu_torch.config import load_parameters
     from ipoke_tpu_torch.eval import test_modes
     from ipoke_tpu_torch.experiments import select_experiment
@@ -52,7 +56,7 @@ def main(argv=None):
     except RuntimeError as e:   # no CUDA device and no --device
         raise SystemExit(f"{e}; on the command line: --device cpu") from None
     config, dirs = load_parameters(args.config, args.model_name, base_dir=args.base_dir,
-                                   test_mode=args.test)
+                                   restart=args.resume, test_mode=args.test)
     experiment = select_experiment(config, dirs)
     if args.test != "none":
         if experiment.name == "second_stage":
@@ -64,8 +68,9 @@ def main(argv=None):
         run = experiment.train(device=device, max_steps=args.max_steps)
         state = run["state"]
         steps = state["step"] if isinstance(state, dict) else state.step   # a distill state is a dict
+        stop = f"; preempted at step {run['preempted']}" if run["preempted"] is not None else ""
         print(f"{experiment.name}: trained {steps} steps on {device}; {len(run['val'])} "
-              f"validations; checkpoints in {run['ckpt_dir']}", flush=True)
+              f"validations; checkpoints in {run['ckpt_dir']}{stop}", flush=True)
         return run
 
 

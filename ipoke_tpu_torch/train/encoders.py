@@ -34,6 +34,7 @@ import torch
 
 from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.ckpt.jax_bridge import _convert, _export, bridge_wrapper, unbridge_wrapper
+from ipoke_tpu_torch.ckpt.optax_layout import from_optax, to_optax
 from ipoke_tpu_torch.metrics.vgg import VGG19, vgg_loss
 from ipoke_tpu_torch.models import discriminators as D
 from ipoke_tpu_torch.models import encoders
@@ -41,7 +42,7 @@ from ipoke_tpu_torch.models.discriminators import PatchDiscSpec
 from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.nn import blocks
 from ipoke_tpu_torch.train.first_stage import _grads, _update, trainable
-from ipoke_tpu_torch.train.second_stage import Optimizer, _ScaleByAdam, _ScaleBySchedule, float_leaves
+from ipoke_tpu_torch.train.second_stage import Optimizer, adam, float_leaves
 from ipoke_tpu_torch.utils import prng
 
 
@@ -69,7 +70,7 @@ def kl_conv(mu, logvar):
 
 def make_ae_optimizer(lr=1e-4) -> Optimizer:
     """optax's ``adam(lr, b1=0.5, b2=0.9)`` over ``trainable(params)``."""
-    return Optimizer([_ScaleByAdam(0.5, 0.9), _ScaleBySchedule(lambda count: lr)])
+    return adam(lr, 0.5, 0.9, masked=True)
 
 
 def _requires_grad(tree):
@@ -234,22 +235,6 @@ def make_poke_ae_step(spec: WrapperSpec, optimizer, flow_ae=False, vgg: VGG19 = 
 # checkpoints in JAX's AETrainState / PokeAEState layout
 # ---------------------------------------------------------------------------
 
-def _masked_like(params, values):
-    """``params``' tree (port layout) with its trainable float leaves
-    replaced, in order, by ``values`` and each ``u`` by {} (optax's
-    ``MaskedNode`` as JAX's npz stores it)."""
-    it = iter(values)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: ({} if k == "u" else walk(v)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return next(it)
-
-    return walk(params)
-
-
 def _export_params(params, is_wrapper):
     if is_wrapper:
         return {"model": unbridge_wrapper(params["model"]),
@@ -257,15 +242,13 @@ def _export_params(params, is_wrapper):
     return _export(params)
 
 
+# the layout of make_ae_optimizer's state, which does not depend on the lr
+_AE_LAYOUT = make_ae_optimizer()
+
+
 def _optax_state(params, opt_state, is_wrapper):
     """The port's Adam state as optax's ``multi_transform`` state."""
-    adam = opt_state[0]
-    moment = lambda v: _export_params(_masked_like(params, v), is_wrapper)  # noqa: E731
-    return {"inner_states": {
-        "freeze": {"inner_state": {}},
-        "train": {"inner_state": [
-            {"count": np.asarray(adam["count"], np.int32), "mu": moment(adam["mu"]),
-             "nu": moment(adam["nu"])}, {}]}}}
+    return to_optax(_AE_LAYOUT, opt_state, params, lambda t: _export_params(t, is_wrapper))
 
 
 def image_ae_ckpt_tree(state: AETrainState):
@@ -291,24 +274,11 @@ def bridge_ae_params(tree, device=None):
             "logvar": torch.tensor(float(tree["logvar"]), device=device)}
 
 
-def _take_like(template, tree):
-    """The leaves of ``tree`` at the trainable float leaves of ``template``,
-    in their order (``u`` skipped)."""
-    if isinstance(template, dict):
-        return [t for k, v in template.items() if k != "u" for t in _take_like(v, tree[k])]
-    if isinstance(template, (list, tuple)):
-        return [t for i, v in enumerate(template) for t in _take_like(v, tree[i])]
-    return [tree] if template.is_floating_point() else []
-
-
-def _restore_opt(template_params, opt, is_wrapper, device):
-    train = opt["inner_states"]["train"]["inner_state"][0]
+def _restore_opt(params, opt, is_wrapper, device):
     bridge = ((lambda t: {"model": bridge_wrapper(t["model"], device, keep_u=False),
                           "logvar": torch.tensor(float(t["logvar"]), device=device)})
               if is_wrapper else (lambda t: _convert(t, device)))
-    count = int(train["count"])
-    return [{"count": count, "mu": _take_like(template_params, bridge(train["mu"])),
-             "nu": _take_like(template_params, bridge(train["nu"]))}, {"count": count}]
+    return from_optax(_AE_LAYOUT, opt, params, bridge)
 
 
 def restore_image_ae(tree, device=None) -> AETrainState:

@@ -50,21 +50,6 @@ def float_leaves(tree):
     return [t for t in leaves(tree) if t is not None and t.is_floating_point()]
 
 
-def like_params(params, values):
-    """``params``' tree with its float leaves replaced, in order, by ``values``
-    and its integer leaves by None: the layout an optimizer moment is saved in."""
-    it = iter(values)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return next(it) if node.is_floating_point() else None
-
-    return walk(params)
-
-
 def global_norm(tensors):
     """optax.global_norm: the L2 norm of all elements of all tensors."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
@@ -192,11 +177,13 @@ class _ScaleByBelief(_ScaleByAdam):
 
 class _ScaleBySchedule:
     """optax.scale_by_learning_rate(schedule): ``-schedule(count) * u``,
-    then count + 1."""
+    then count + 1.  ``counted=False``: a constant lr, for which optax keeps
+    no count (``scale(-lr)``); the port counts all the same."""
     name = "schedule"
 
-    def __init__(self, schedule):
+    def __init__(self, schedule, counted=True):
         self.schedule = schedule
+        self.counted = counted
 
     def init(self, params):
         return {"count": 0}
@@ -209,10 +196,18 @@ class _ScaleBySchedule:
 
 class Optimizer:
     """A chain of gradient transformations over a param tree's float leaves
-    (``make_optimizer``'s result)."""
+    (``make_optimizer``'s result).
 
-    def __init__(self, transforms):
+    ``layout`` nests the transforms' indices as optax's chains nest their
+    states (a chain inside a chain is a tuple inside the tuple; default: one
+    flat chain); ``masked``: optax wraps the chain in ``multi_transform``
+    with the frozen leaves ``set_to_zero``.  Both say only how the state is
+    saved (``ckpt/optax_layout``)."""
+
+    def __init__(self, transforms, layout=None, masked=True):
         self.transforms = list(transforms)
+        self.layout = tuple(range(len(self.transforms))) if layout is None else layout
+        self.masked = masked
 
     def init(self, params_tree):
         p = float_leaves(params_tree)
@@ -224,13 +219,6 @@ class Optimizer:
             grads = t.update(grads, s, params)
         return grads
 
-    def state_tree(self, state, params_tree):
-        """The state as a tree to save: each transform's under its name, a
-        moment in ``params_tree``'s layout (None at the integer leaves)."""
-        return {t.name: {k: (like_params(params_tree, v) if isinstance(v, list) else v)
-                         for k, v in s.items()}
-                for t, s in zip(self.transforms, state)}
-
 
 def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False,
                b1: float = 0.9, b2: float = 0.999):
@@ -241,10 +229,12 @@ def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False,
     return steps + [_ScaleBySchedule(schedule)]
 
 
-def adam(lr: float) -> Optimizer:
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, masked: bool = False) -> Optimizer:
     """optax.adam(lr): scale_by_adam, then a constant scale of -lr; no decay
-    (the distillation experiment's optimizer)."""
-    return Optimizer([_ScaleByAdam(), _ScaleBySchedule(lambda count: lr)])
+    (the distillation experiment's optimizer; ``masked``: under
+    ``multi_transform``, as JAX wraps it for a flow student)."""
+    return Optimizer([_ScaleByAdam(b1, b2), _ScaleBySchedule(lambda count: lr, counted=False)],
+                     masked=masked)
 
 
 def make_optimizer(lr: float, weight_decay: float = 1e-5, warmup_steps: int = 500,
@@ -257,8 +247,9 @@ def make_optimizer(lr: float, weight_decay: float = 1e-5, warmup_steps: int = 50
         steps = [_ScaleByAdam(), _DecayedWeights(weight_decay), _ScaleBySchedule(schedule)]
     else:
         steps = torch_adam(schedule, weight_decay=weight_decay, amsgrad=amsgrad)
-    if clip_grad_norm > 0:
-        steps = [_Clip(clip_grad_norm)] + steps
+    if clip_grad_norm > 0:   # optax.chain(clip, <the chain above>)
+        return Optimizer([_Clip(clip_grad_norm)] + steps,
+                         layout=(0, tuple(range(1, len(steps) + 1))))
     return Optimizer(steps)
 
 

@@ -558,3 +558,69 @@ def test_encoder_trainer_on_the_card(cuda, tmp_path):
     assert run["state"].params["logvar"].is_cuda and len(run["val"]) == 1
     tested = main(["-c", str(path), "-m", "t", "--device", "cuda", "--test", "fvd"])
     assert abs(tested["lpips-val"] - run["val"][0]["lpips-val"]) <= 1e-5 * run["val"][0]["lpips-val"]
+
+
+@pytest.mark.gpu
+def test_stage2_signal_save_and_resume_on_the_card(cuda, tmp_path, monkeypatch):
+    """configs/debug_second_stage.yaml through ``python -m
+    ipoke_tpu_torch.main`` on the card: SIGTERM raised in step 2 saves
+    last.npz after that step (``preempted``) and the run returns; ``--resume``
+    restores the params, moments and counts bitwise, trains step 3 at the
+    schedule's lr of count 2, and saves its last.npz at step 3."""
+    import signal
+    from pathlib import Path
+
+    import numpy as np
+    import yaml
+
+    from ipoke_tpu_torch.ckpt import io
+    from ipoke_tpu_torch.experiments import second_stage as experiment
+    from ipoke_tpu_torch.main import main
+    from ipoke_tpu_torch.train import second_stage as train_ss
+
+    cfg = yaml.safe_load((Path(__file__).resolve().parent.parent / "configs" /
+                          "debug_second_stage.yaml").read_text())
+    cfg["general"]["base_dir"] = str(tmp_path / "logs")
+    path = tmp_path / "ss.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    argv = ["-c", str(path), "-m", "t", "--device", "cuda"]
+    make = train_ss.make_train_step
+
+    def signalling(*a, **k):
+        step = make(*a, **k)
+
+        def wrapped(state, batch, rng):
+            out = step(state, batch, rng)
+            if out[0].step == 2:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(train_ss, "make_train_step", signalling)
+    run = main(argv)
+    assert run["preempted"] == 2 and run["state"].step == 2
+    saved, meta = io.load(run["ckpt"])
+    assert meta == {"step": 2, "preempted": True}
+    monkeypatch.setattr(train_ss, "make_train_step", make)
+    restore, checked, lrs = experiment.restore_train_state, [], []
+
+    def checking(tree, optimizer, template, spec, device=None):
+        state = restore(tree, optimizer, template, spec, device)
+        assert all(p.is_cuda for p in train_ss.float_leaves(state.params))
+        a = io._flatten(experiment.ckpt_tree(state, optimizer, spec))
+        b = io._flatten(tree)
+        checked.append(a.keys() == b.keys() and all(
+            np.asarray(a[k]).dtype == np.asarray(b[k]).dtype and np.array_equal(a[k], b[k])
+            for k in a))
+        return state
+
+    upd = train_ss._ScaleBySchedule.update
+    monkeypatch.setattr(experiment, "restore_train_state", checking)
+    monkeypatch.setattr(train_ss._ScaleBySchedule, "update", lambda self, u, s, p: (
+        lrs.append((s["count"], self.schedule(s["count"]))), upd(self, u, s, p))[1])
+    resumed = main([*argv, "--resume", "--max-steps", "1"])
+    assert checked == [True] and resumed["start_step"] == 2 and resumed["state"].step == 3
+    assert resumed["ckpt_dir"] == run["ckpt_dir"] and lrs[0][0] == 2
+    assert len(resumed["history"]) == 1 and resumed["preempted"] is None
+    _, meta = io.load(resumed["ckpt"])
+    assert meta["step"] == 3 and "preempted" not in meta

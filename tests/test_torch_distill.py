@@ -42,11 +42,12 @@ from ipoke_tpu.train import second_stage as jtrain
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import (
     bridge_direct, bridge_flow, unbridge_direct, unbridge_flow, unbridge_second_stage)
+from ipoke_tpu_torch.ckpt.optax_layout import masked_like
 from ipoke_tpu_torch.experiments import distill as experiment
 from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.train import distill
-from ipoke_tpu_torch.train.second_stage import adam, float_leaves, like_params
+from ipoke_tpu_torch.train.second_stage import adam, float_leaves
 from ipoke_tpu_torch.utils import prng, synth
 from test_serve_artifact import _spec as jax_teacher_spec
 from torch_port_util import CPU, clone_tree, flatten, np_tree, port_second_stage_spec, t
@@ -223,7 +224,7 @@ def test_direct_loss_and_gradients_match_jax(teacher, direct, case):
         assert abs(float(loss) - float(r_loss)) <= 1e-5 * (1 + abs(float(r_loss)))
         assert float(logs["distill_mse"].detach()) == float(loss)
     r_grads = flatten(bridge_direct(r_grads, CPU))
-    got = flatten(like_params(sp, grads))
+    got = flatten(masked_like(sp, grads, lambda: None))
     assert got.keys() == r_grads.keys()
     for k, g in got.items():
         assert bool(torch.isfinite(g).all()), k
@@ -242,7 +243,7 @@ def test_flow_student_loss_matches_jax(teacher, flow_student):
     r_loss, r_grads = ref["grad"]
     assert abs(float(loss) - float(r_loss)) <= 1e-5 * (1 + abs(float(r_loss)))
     r_grads = flatten(bridge_flow(np_tree(r_grads), CPU))
-    got = {k: g for k, g in flatten(like_params(sp, grads)).items() if g is not None}
+    got = {k: g for k, g in flatten(masked_like(sp, grads, lambda: None)).items() if g is not None}
     assert got and got.keys() <= r_grads.keys()
     assert all(not r_grads[k].is_floating_point() for k in r_grads.keys() - got.keys())
     for k, g in got.items():
@@ -330,22 +331,23 @@ def test_forward_sample_student_matches_jax(teacher, direct, student_samples, dr
 
 
 def test_distill_cli_trains_and_tests(tmp_path, monkeypatch, caplog):
-    """The debug config, two steps: a fresh teacher (with the warning), a
-    top-k checkpoint and last.npz that JAX's ckpt/io reads in its layout,
-    then teacher and student videos."""
+    """The debug config, its one epoch of four steps: a fresh teacher (with
+    the warning), the epoch's end validated into a top-k checkpoint and
+    last.npz that JAX's ckpt/io reads in its layout (optax's state
+    included), then teacher and student videos."""
     monkeypatch.chdir(tmp_path)
     argv = ["-c", str(ROOT / "configs" / "debug_distill.yaml"), "-m", "t", "--device", "cpu"]
-    experiment.main(["train", *argv, "--max-steps", "2"])
+    experiment.main(["train", *argv])
     assert "FRESH teacher" in caplog.text
     ckpt = tmp_path / "logs" / "distill" / "ckpt" / "t" / "0"
     best = io.find_best(str(ckpt))
-    assert best and Path(best).name.startswith("step=2-distill-val=")
+    assert best and Path(best).name.startswith("step=4-distill-val=")
     tree, meta = jio.load(str(ckpt / "last.npz"))
-    assert meta["step"] == 2 and int(tree["step"]) == 2
+    assert meta["step"] == 4 and int(tree["step"]) == 4
     assert tree["params"]["conv_in"]["conv"]["w"].shape == (3, 3, 16 + 32, 32)   # HWIO
     assert len(tree["params"]["res"]) == 2
-    assert tree["opt"]["adam"]["count"] == 2
-    assert tree["opt"]["adam"]["mu"]["conv_out"]["conv"]["w"].shape == (3, 3, 32, 16)
+    assert tree["opt"][0]["count"] == 4 and tree["opt"][1] == {}   # optax.adam: (adam, scale)
+    assert tree["opt"][0]["mu"]["conv_out"]["conv"]["w"].shape == (3, 3, 32, 16)
     experiment.main(["test", *argv])
     out = tmp_path / "logs" / "distill" / "generated" / "t" / "distill_samples"
     names = sorted(os.listdir(out))

@@ -291,7 +291,8 @@ def _tiny_config(tmp_path, kind):
 def test_main_trains_and_tests_an_encoder(tmp_path, kind):
     """``python -m ipoke_tpu_torch.main``: one step and a validation with
     its top-k checkpoint; ``--test`` scores the best checkpoint again;
-    ``--resume`` raises naming its ROADMAP item."""
+    ``--resume`` trains on from last.npz in the same version: step 2, its
+    epoch's end validated."""
     cfg = _tiny_config(tmp_path, kind)
     run = port_main(["-c", cfg, "-m", "t", "--device", "cpu"])
     assert len(run["history"]) == 1 and len(run["val"]) == 1
@@ -300,8 +301,9 @@ def test_main_trains_and_tests_an_encoder(tmp_path, kind):
     assert len(kept) == 1 and os.path.exists(run["ckpt"])
     tested = port_main(["-c", cfg, "-m", "t", "--device", "cpu", "--test", "fvd"])
     assert tested["lpips-val"] == pytest.approx(run["val"][0]["lpips-val"], rel=1e-6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        port_main(["-c", cfg, "-m", "t", "--device", "cpu", "--resume"])
+    again = port_main(["-c", cfg, "-m", "t", "--device", "cpu", "--resume", "--max-steps", "1"])
+    assert again["ckpt_dir"] == run["ckpt_dir"] and again["start_step"] == 1
+    assert again["state"].step == 2 and [v["step"] for v in again["val"]] == [2]
 
 
 def test_main_raises_on_an_unported_test_mode(tmp_path):

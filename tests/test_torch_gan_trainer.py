@@ -58,8 +58,10 @@ def test_trainer_cli_writes_jax_last_npz(tmp_path):
     tree, meta = jio.load(ckpt)
     assert meta == {"step": 1} and int(tree["step"]) == 1
     assert sorted(tree) == ["ds_opt", "ds_params", "dt_opt", "dt_params", "gen_opt", "gen_params", "step"]
-    assert int(tree["gen_opt"]["adam"]["count"]) == 1 and int(tree["dt_opt"]["schedule"]["count"]) == 1
-    assert "u" in tree["dt_params"]["conv1"] and "u" not in tree["dt_opt"]["adam"]["mu"]["conv1"]
+    gen_chain, dt_chain = (tree[k]["inner_states"]["train"]["inner_state"]   # optax's layout
+                           for k in ("gen_opt", "dt_opt"))
+    assert int(gen_chain[1]["count"]) == 1 and int(dt_chain[2]["count"]) == 1
+    assert "u" in tree["dt_params"]["conv1"] and dt_chain[1]["mu"]["conv1"]["u"] == {}
     nets = bridge_gan_params(np_tree(tree), device=CPU)
     back = unbridge_gan_params(nets)
     for k, v in flatten(np_tree({n: tree[n] for n in back})).items():

@@ -34,6 +34,7 @@ from ipoke_tpu.train import lr as jlr
 from ipoke_tpu.train import second_stage as jtrain
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_flow, bridge_second_stage, unbridge_second_stage
+from ipoke_tpu_torch.ckpt.optax_layout import masked_like
 from ipoke_tpu_torch.config import load_parameters
 from ipoke_tpu_torch.experiments import second_stage as experiment
 from ipoke_tpu_torch.train import lr
@@ -106,7 +107,7 @@ def _port_grads(pt, spec, batch, n=1, dtype=None, key=prng.prng_key(STEP_KEY)):
     state = train.init_state(trainable, opt)
     step = train.make_train_step(spec, frozen, opt, n_microbatches=n, compute_dtype=dtype)
     _, metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, key)
-    return train.like_params(trainable, state.opt_state[0]["grads"]), metrics
+    return masked_like(trainable, state.opt_state[0]["grads"], lambda: None), metrics
 
 
 def _grad_errors(got, want):
@@ -136,8 +137,8 @@ def test_two_microbatches_average_the_halves(model):
     keys = prng.split(prng.prng_key(STEP_KEY), 2)
     halves = [_port_grads(pt, spec, {k: v[i:i + 1] for k, v in batch.items()}, key=keys[i])
               for i in range(2)]
-    mean = train.like_params(train.split_params(pt)[0], [(a + b) / 2 for a, b in zip(
-        train.float_leaves(halves[0][0]), train.float_leaves(halves[1][0]))])
+    mean = masked_like(train.split_params(pt)[0], [(a + b) / 2 for a, b in zip(
+        train.float_leaves(halves[0][0]), train.float_leaves(halves[1][0]))], lambda: None)
     assert max(_grad_errors(grads, mean).values()) <= 1e-6
     for k, v in halves[1][1].items():   # the logs of the last microbatch
         if k != "grad_norm":
@@ -298,7 +299,8 @@ def test_trainer_on_the_debug_config(tmp_path):
     tree, meta = jio.load(run["ckpt"])
     assert meta == {"step": 2} and int(tree["step"]) == 2
     assert sorted(tree["params"]) == ["flow"]
-    assert int(tree["opt_state"]["adam"]["count"]) == 2
+    chain = tree["opt_state"]["inner_states"]["train"]["inner_state"]   # optax's layout
+    assert int(chain[1]["count"]) == 2 and int(chain[2]["count"]) == 2
     saved = bridge_second_stage(np_tree(tree["params"]), run["spec"], device=CPU)
     trained = flatten(run["state"].params)
     for k, v in flatten(saved).items():
