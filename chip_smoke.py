@@ -57,14 +57,32 @@ Phases, each fatal on failure:
              the launch counters zeroed just before it and read just after:
              run_fvd (16 videos in two batches, K2 200 per batch), run_diversity
              (3 samples of 8 examples, 200), run_samples (2 examples, 200),
-             the stage-2 validate (two val batches, 400); seconds by part
+             the stage-2 validate (two val batches and the latent scatter's
+             two, 800; its latents.png, or where matplotlib is missing JAX's
+             "latent scatter skipped" warning); seconds by part
              (sampling, I3D features, Frechet), peak memory and every
              *_UNPRETRAINED value printed; the sampled videos' I3D features on
              the card against the port's CPU I3D within I3D_TOL; then the
              stage-2 trainer's top-k checkpoints at cut depth (iper_128's
              width on one MaCowStep), find_best, and test --mode fvd on it;
              then that run resumed (--resume) for one step, which it must
-             validate (K2, 4 launches) with its record in metrics.jsonl.
+             validate (K2, 12 launches with the scatter's) with its record
+             in metrics.jsonl.  The run tree is config.load_parameters'
+             layout, so the entry points of eval2 load it.
+  8b. eval2  the rest of evaluation on the same params and split, B=8,
+             one test batch per mode (EVAL2_TESTING): run_accuracy (the
+             pose net's keypoints; without matplotlib it must write
+             accuracy.csv, finite, then raise ModuleNotFoundError at the
+             first plot, as JAX's), run_kps_acc, run_control_sensitivity
+             (2 directions, its artefact tree) and run_transfer, each with
+             its exact K2 count (200 per sampling call); the GUI in this
+             process (eval/gui over an InteractiveSession of the slice's
+             params, B=1): GET / and /frame, a first and GUI_POKES steady
+             pokes at the config's length, one of length 16, one with no
+             poke, 200 K2 each, ms per poke; then python -m
+             ipoke_tpu_torch.eval.interactive and python -m
+             ipoke_tpu_torch.eval.gui in child processes on the eval
+             phase's cut-depth top-k run (the GUI's start line, one poke).
   9. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
              data in JAX's training order with zero pokes (B=8, 10 frames of
@@ -120,6 +138,7 @@ Phases, each fatal on failure:
              ipoke_tpu_torch.main; then 2 stage-2 steps through main on the
              tree at cut depth.  No kernel launches on any of these paths.
  12. report  a JSON line of the data phase, one of the eval phase, one of
+             the eval2 phase, one of
              the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
              and last {"ok": true, "device": {...}}.
@@ -129,8 +148,10 @@ limit printed beside it.
 from __future__ import annotations
 
 import http.client
+import importlib.util
 import io as pyio
 import json
+import logging
 import os
 import re
 import shutil
@@ -221,6 +242,15 @@ EVAL_TESTING = {"seed": 42, "n_samples_fvd": 16, "n_samples_per_data_point": 3,
 # top-k and test at cut depth: iper_128's width (C=32, hidden 2048, h 128) on
 # one level of one MaCowStep, so a checkpoint saves in seconds
 TOPK_NUM_STEPS = [1]
+# val batches each stage-2 validation reverses for its latent scatter (JAX's
+# _log_latents reads 2, whatever max_val_batches says)
+LATENT_BATCHES = 2
+TOPK_MODEL = "topk"        # the eval phase's run, which the entry points load
+# the rest of evaluation (eval2 phase): one test batch of 8 per mode
+EVAL2_TESTING = {"seed": 42, "n_samples_metrics": 8, "n_samples_per_data_point": 2,
+                 "n_control_sensitivity_pokes": 2, "n_samples_vis": 1}
+GUI_POKES = 3              # steady GUI pokes timed after the first
+ENTRY_TIMEOUT_S = 240      # the entry points' child processes, start-up included
 # resumption at full width: the child's epoch (long enough that it never ends
 # in the run), the logged step that triggers SIGTERM, the resumed steps, and
 # how long the child may take
@@ -1186,14 +1216,23 @@ def eval_config(entry, b=BATCH):
     return config
 
 
-def _mode(card, name, fn, want_k2, *args, **kw):
+def _mode(card, name, fn, want_k2, *args, raises=None, **kw):
     """One eval mode with its launch counts read around it: (result, host
-    seconds, timings by part, (K1, K2) launches)."""
+    seconds, timings by part, (K1, K2) launches).  With ``raises``, the
+    mode must raise that exception (its result is then ``{}``)."""
     timings = {}
     _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = fn(*args, timings=timings, **kw)
+    if raises is None:
+        out = fn(*args, timings=timings, **kw)
+    else:
+        try:
+            fn(*args, timings=timings, **kw)
+        except raises as e:
+            out = {"raised": repr(e)}
+        else:
+            raise SystemExit(f"eval: {name} did not raise {raises.__name__}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = _counts()
@@ -1212,15 +1251,19 @@ def phase_eval(device, card, entry, spec, params, tmp):
     forward_sample call) at full width, B=8, 10 frames of 128^2 on the
     synthetic test split: run_fvd (16 videos, two batches), run_diversity
     (3 samples of 8 examples), run_samples (2 examples), the stage-2
-    validate (two val batches); the fake videos' I3D features on the card
-    against the port's CPU I3D on the first I3D_CPU_VIDEOS of them; then the
-    trainer's top-k checkpoints and ``test --mode fvd`` at cut depth
-    (TOPK_NUM_STEPS).  Every *_UNPRETRAINED value is printed.  Returns the
-    numbers."""
+    validate (two val batches, then the latent scatter's LATENT_BATCHES);
+    the fake videos' I3D features on the card against the port's CPU I3D on
+    the first I3D_CPU_VIDEOS of them; then the trainer's top-k checkpoints
+    and ``test --mode fvd`` at cut depth (TOPK_NUM_STEPS), and that run
+    resumed.  Every *_UNPRETRAINED value is printed.  Returns (the numbers,
+    the cut-depth run's config)."""
     config = eval_config(entry)
-    dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
+    dirs = eval_dirs(tmp)
     data = StaticDataModule(config["data"])
     units = 4 * sum(spec.flow.num_steps)
+    # each validation also draws the latent scatter: LATENT_BATCHES val
+    # batches through the flow's reverse, whatever max_val_batches says
+    scatter = min(LATENT_BATCHES, len(data.loader("val")))
     out = {"i3d_pretrained": i3d.i3d().pretrained, "lpips_pretrained": lpips_pretrained()}
     t_phase = time.perf_counter()
     n_batches = EVAL_TESTING["n_samples_fvd"] // BATCH
@@ -1230,9 +1273,11 @@ def phase_eval(device, card, entry, spec, params, tmp):
                                       params, spec, config, data, dirs)
     smp, out["run_samples"] = _mode(card, "run_samples", test_modes.run_samples, units,
                                     params, spec, config, data, dirs)
-    val, out["validate"] = _mode(card, "stage-2 validate", experiment.validate,
-                                 units * config["training"]["max_val_batches"],
-                                 params, spec, config, data)
+    with _captured_log(experiment.log) as warnings:
+        val, out["validate"] = _mode(card, "stage-2 validate", experiment.validate,
+                                     units * (config["training"]["max_val_batches"] + scatter),
+                                     params, spec, config, data, log_dir=dirs["log"])
+    _check_scatter(os.path.join(dirs["log"], "latents.png"), warnings)
     key = "FVD" if out["i3d_pretrained"] else "FVD_UNPRETRAINED"
     scores = {f"run_fvd {key}": fvd[key], "run_diversity div_vgg_cosine": div["div_vgg_cosine"],
               "run_diversity div_mse": div["div_mse"], "run_diversity div_lpips": div["div_lpips"],
@@ -1285,12 +1330,14 @@ def phase_eval(device, card, entry, spec, params, tmp):
     kept = sorted(f for f in os.listdir(run["ckpt_dir"]) if f.startswith("step="))
     want_best = min(vals, key=lambda v: v["FVD-val"])
     ckpt_mb = os.path.getsize(best) / 1e6
+    want_train = cut_units * (1 + scatter) * len(vals)
     log(f"eval [{card}]: top-k at cut depth ({entry.name} width, num_steps {TOPK_NUM_STEPS}): 2 steps, "
         f"validations at steps {[v['step'] for v in vals]} with FVD-val "
         f"{[round(v['FVD-val'], 6) for v in vals]}; kept {kept}; find_best {os.path.basename(best)} "
         f"({ckpt_mb:.0f} MB, top-k saves {sum(v['save_s'] for v in vals):.1f} s); the run "
-        f"{train_s:.1f} s, K1/K2 launches {n_train[0]}/{n_train[1]} (want 0/{cut_units * len(vals)})")
-    if [v["step"] for v in vals] != [1, 2, 2] or n_train != (0, cut_units * len(vals)):
+        f"{train_s:.1f} s, K1/K2 launches {n_train[0]}/{n_train[1]} (want 0/{want_train} = "
+        f"{cut_units} x (1 FVD batch + {scatter} scatter batches) x {len(vals)} validations)")
+    if [v["step"] for v in vals] != [1, 2, 2] or n_train != (0, want_train):
         raise SystemExit(f"eval: the cut-depth trainer did not validate on JAX's schedule: {vals}")
     if os.path.basename(best) != f"step={want_best['step']}-FVD-val={want_best['FVD-val']:.3f}.npz":
         raise SystemExit(f"eval: find_best gave {best}, not the least FVD-val {want_best}")
@@ -1316,9 +1363,10 @@ def phase_eval(device, card, entry, spec, params, tmp):
         f"{os.path.basename(again['ckpt_dir'])} (load {again['resume'].get('load_s', float('nan')):.2f} "
         f"s, restore {again['resume'].get('restore_s', float('nan')):.2f} s), validations at steps "
         f"{[v['step'] for v in again['val']]}; metrics.jsonl steps {[r['step'] for r in records]}; "
-        f"{again_s:.1f} s, K1/K2 launches {n_again[0]}/{n_again[1]} (want 0/{cut_units})")
+        f"{again_s:.1f} s, K1/K2 launches {n_again[0]}/{n_again[1]} (want 0/"
+        f"{cut_units * (1 + scatter)}, the scatter's included)")
     if (again["start_step"] != 2 or again["ckpt_dir"] != run["ckpt_dir"]
-            or [v["step"] for v in again["val"]] != [3] or n_again != (0, cut_units)
+            or [v["step"] for v in again["val"]] != [3] or n_again != (0, cut_units * (1 + scatter))
             or [r["step"] for r in records] != [1, 2, 2, 3] or "FVD-val" not in records[-1]):
         raise SystemExit(f"eval: the resumed cut-depth run did not validate on: {again['val']}, "
                          f"records {records}, K1/K2 {n_again}")
@@ -1329,7 +1377,244 @@ def phase_eval(device, card, entry, spec, params, tmp):
                                        "macow_unit_inverse": n_again[1]}}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"eval: the phase took {out['phase_s']:.1f} s")
+    return out, cut
+
+
+def eval_dirs(tmp, name=TOPK_MODEL):
+    """The eval phases' run directories, in ``config.load_parameters``'s
+    layout under ``<tmp>/logs``, so the entry points find the run."""
+    return {k: os.path.join(tmp, "logs", "chip_smoke", k, name)
+            for k in ("ckpt", "config", "generated", "log")}
+
+
+class _captured_log:
+    """The messages a logger emits inside the ``with`` block (a list)."""
+
+    def __init__(self, logger):
+        self.logger, self.records = logger, []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.records.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _have_matplotlib():
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _check_scatter(png, warnings):
+    """The validation's latent scatter: written where matplotlib imports,
+    else skipped with JAX's warning."""
+    skipped = [w for w in warnings if w.startswith("latent scatter skipped")]
+    if _have_matplotlib():
+        ok = os.path.exists(png) and not skipped
+        log(f"eval: matplotlib imports; the latent scatter wrote {png} ({ok})")
+    else:
+        ok = not os.path.exists(png) and len(skipped) == 1
+        log(f"eval: matplotlib is missing; the validation logged {skipped} ({ok})")
+    if not ok:
+        raise SystemExit(f"eval: the latent scatter did not behave as JAX's: {warnings}")
+
+
+def _png_size(data):
+    """(width, height) of PNG bytes, read off their IHDR chunk."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit("eval2: not a PNG")
+    return tuple(int.from_bytes(data[i:i + 4], "big") for i in (16, 20))
+
+
+def _gui_poke(port, body):
+    """One POST /poke: (round-trip ms, the reply)."""
+    t0 = time.perf_counter()
+    reply = json.loads(_http(port, "POST", "/poke", json.dumps(body).encode()))
+    return (time.perf_counter() - t0) * 1e3, reply
+
+
+def phase_eval2(device, card, entry, spec, params, tmp, cut):
+    """The rest of evaluation on the eval phase's params and synthetic test
+    split at full width, B=8: the modes accuracy, kps_acc,
+    control_sensitivity and transfer (EVAL2_TESTING) with their K2 launches
+    (200 per sampling call); the GUI in this process on an
+    ``InteractiveSession`` of the same params (B=1: GUI_POKES steady pokes
+    at the config's length after a first, one past the trained horizon, one
+    with no poke; 200 K2 launches each); then ``python -m
+    ipoke_tpu_torch.eval.interactive`` and ``python -m
+    ipoke_tpu_torch.eval.gui`` in child processes on the eval phase's
+    cut-depth top-k run (config ``cut``).  Returns the numbers."""
+    from ipoke_tpu_torch.eval import gui
+    from ipoke_tpu_torch.eval.interactive import InteractiveSession
+
+    t_phase = time.perf_counter()
+    config = dict(eval_config(entry), testing=dict(EVAL2_TESTING))
+    dirs = eval_dirs(tmp, "eval2")
+    data = StaticDataModule(config["data"])
+    units = 4 * sum(spec.flow.num_steps)
+    mpl = _have_matplotlib()
+    out = {"matplotlib": mpl}
+    n_test = len(data.loader("test"))
+    k = EVAL2_TESTING["n_control_sensitivity_pokes"]
+    # sampling calls, nb test batches per mode (one at B=8); kps_acc's
+    # keypoint_mse reads up to 8 test batches, then its proxy nb more;
+    # control_sensitivity samples k directions per batch and, in the first
+    # (where its one artefact example is), the batch's own poke; transfer
+    # reverses once per batch
+    nb = -(-EVAL2_TESTING["n_samples_metrics"] // BATCH)
+    want = {"accuracy": units * nb, "kps_acc": units * (min(8, n_test) + nb),
+            "control_sensitivity": units * (1 + k * nb), "transfer": units * nb}
+    acc, out["accuracy"] = _mode(card, "run_accuracy" + ("" if mpl else " (no matplotlib)"),
+                                 test_modes.run_accuracy, want["accuracy"], params, spec, config,
+                                 data, dirs, raises=None if mpl else ModuleNotFoundError)
+    with open(os.path.join(dirs["generated"], "metrics", "accuracy.csv")) as f:
+        rows = [line.strip().split(",") for line in f][1:]
+    finite = len(rows) == entry.max_frames - 1 and all(np.isfinite(float(v)) for r in rows for v in r)
+    if mpl:
+        finite = finite and all(np.isfinite(v) for k_, v in acc.items() if isinstance(v, float))
+        pngs = [os.path.exists(os.path.join(dirs["generated"], "metrics", f))
+                for f in ("lpips_per_frame.png", "accuracy_two_axes.png")]
+    else:   # JAX's behaviour: the CSV written, then the first plot raises
+        finite = finite and "matplotlib" in acc["raised"]
+        pngs = []
+    log(f"eval2: accuracy.csv {len(rows)} frames, finite {finite}; plots {pngs}")
+    if not finite or not all(pngs):
+        raise SystemExit(f"eval2: run_accuracy's numbers or files are wrong: {rows}, {acc}")
+    kps, out["kps_acc"] = _mode(card, "run_kps_acc", test_modes.run_kps_acc, want["kps_acc"],
+                                params, spec, config, data, dirs)
+    ctl, out["control_sensitivity"] = _mode(card, "run_control_sensitivity",
+                                            test_modes.run_control_sensitivity,
+                                            want["control_sensitivity"], params, spec, config, data, dirs)
+    trf, out["transfer"] = _mode(card, "run_transfer", test_modes.run_transfer, want["transfer"],
+                                 params, spec, config, data, dirs)
+    n_files = {"control_sensitivity": sum(len(fs) for _, _, fs in os.walk(ctl["artifact_dir"])),
+               "transfer": len(os.listdir(trf["dir"]))}
+    numbers = [kps[k_] for k_ in kps if isinstance(kps[k_], float)] + ctl["per_direction_response"] + [
+        ctl["response_cv_across_directions"]]
+    log(f"eval2: kps_acc {json.dumps({k_: v for k_, v in kps.items() if k_ != 'status'})}; "
+        f"control_sensitivity artefacts {n_files['control_sensitivity']} files, transfer "
+        f"{n_files['transfer']}; motion-energy correlation {trf['motion_energy_correlation']}")
+    # control_sensitivity: overview, samples_all, then groundtruth and k + 1
+    # samples, each a video and an enrollment PNG; transfer: 3 videos
+    if (not all(np.isfinite(v) for v in numbers) or kps["n_examples"] != nb * BATCH
+            or n_files != {"control_sensitivity": 2 + 2 * (k + 2), "transfer": 3}
+            or ctl["n_examples"] != nb * BATCH or trf["n"] != nb * BATCH):
+        raise SystemExit(f"eval2: a mode's numbers or files are wrong: {kps}, {ctl}, {trf}, {n_files}")
+
+    # the GUI in this process, B=1, the slice's params
+    examples = data.datasets["test"]
+    sess = InteractiveSession(params, spec, display_size=256)
+    sess.set_image(examples[0]["images"][0])
+    videos = []
+    generate = sess.generate
+
+    def recording(pokes, length=None, poke_size=5):
+        vid, poke = generate(pokes, length, poke_size)
+        videos.append(vid)
+        return vid, poke
+
+    sess.generate = recording
+    server = gui.make_server(sess, lambda i: examples[i % len(examples)]["images"][0], port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    poke = {"x": 128, "y": 100, "dx": 30, "dy": -12}
+    gui_ms, server_s, sent = [], [], []
+    try:
+        page = _http(port, "GET", "/").decode()
+        frame = _png_size(_http(port, "GET", "/frame"))
+        length = spec.first_stage.max_frames - 1
+        for body in ([{"pokes": [poke], "length": length}] * (1 + GUI_POKES)
+                     + [{"pokes": [poke], "length": 16}, {"pokes": [], "length": length}]):
+            _zero_counts()
+            ms, reply = _gui_poke(port, body)
+            n = _counts()
+            sent.append({"frames": len(reply["frames"]), "want": body["length"] + 1,
+                         "launches": {"mcf_inverse": n[0], "macow_unit_inverse": n[1]},
+                         "finite": bool(np.isfinite(videos[-1]).all())})
+            gui_ms.append(ms)
+            server_s.append(reply["seconds"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    steady = gui_ms[1:1 + GUI_POKES]
+    out["gui"] = {"first_ms": gui_ms[0], "median_ms": _median(steady), "ms": gui_ms,
+                  "server_s": server_s, "launches_per_poke": [p["launches"] for p in sent]}
+    k2_per_poke = [p["launches"]["macow_unit_inverse"] for p in sent]
+    log(f"eval2 [{card}]: GUI in process ({entry.name} full width, B=1): GET / {len(page)} bytes, "
+        f"GET /frame {frame[0]}x{frame[1]} PNG; POST /poke first {gui_ms[0]:.1f} ms, median of "
+        f"{GUI_POKES} steady {out['gui']['median_ms']:.1f} ms (server {_median(server_s[1:1 + GUI_POKES]):.3f} "
+        f"s), length 16 {gui_ms[-2]:.1f} ms, no poke {gui_ms[-1]:.1f} ms; frames "
+        f"{[p['frames'] for p in sent]}, K2 per poke {k2_per_poke} (want {units}; K1 "
+        f"{sum(p['launches']['mcf_inverse'] for p in sent)})")
+    if (frame != (256, 256) or "<canvas" not in page or any(
+            p["frames"] != p["want"] or p["launches"] != {"mcf_inverse": 0, "macow_unit_inverse": units}
+            or not p["finite"] for p in sent)):
+        raise SystemExit(f"eval2: the GUI answered wrong: {sent}, frame {frame}")
+
+    # the entry points as users start them, on the cut-depth top-k run
+    cfg_path = _write_config(os.path.join(tmp, "cut.yaml"),
+                             dict(cut, general=dict(cut["general"], base_dir=os.path.join(tmp, "logs"))))
+    out["entry_points"] = _entry_points(card, cfg_path, poke)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"eval2 [{card}]: the phase took {out['phase_s']:.1f} s")
     return out
+
+
+def _entry_points(card, cfg_path, poke):
+    """``eval.gui`` (waited for its start line, one POST /poke, then stopped)
+    and ``eval.interactive`` (its JSON line and files) in child processes on
+    the run of ``cfg_path``, model TOPK_MODEL, the card by default."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    gui_proc = subprocess.Popen([sys.executable, "-m", "ipoke_tpu_torch.eval.gui", "-c", cfg_path,
+                                 "-m", TOPK_MODEL, "--port", str(port)], cwd=str(ROOT),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        proc = subprocess.run([sys.executable, "-m", "ipoke_tpu_torch.eval.interactive", "-c", cfg_path,
+                               "-m", TOPK_MODEL, "--pokes", json.dumps([poke]), "--length", "12"],
+                              cwd=str(ROOT), capture_output=True, text=True, timeout=ENTRY_TIMEOUT_S)
+        inter_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"eval2: eval.interactive failed:\n{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        files = sorted(os.listdir(line["out"]))
+        log(f"eval2 [{card}]: python -m ipoke_tpu_torch.eval.interactive: {line} in {inter_s:.1f} s "
+            f"with start-up; files {files}")
+        if (set(line) != {"frames", "out"} or line["frames"] != 12 or len(files) != 2
+                or "enrollment.png" not in files):
+            raise SystemExit(f"eval2: eval.interactive wrote {line}, {files}")
+        lines, started = [], None
+        timer = threading.Timer(ENTRY_TIMEOUT_S, gui_proc.kill)
+        timer.start()
+        for text in gui_proc.stdout:
+            lines.append(text)
+            if text.startswith("ipoke-tpu GUI: http://127.0.0.1:"):
+                started = time.perf_counter() - t0
+                break
+        timer.cancel()
+        if started is None:
+            raise SystemExit(f"eval2: eval.gui never served:\n{''.join(lines)[-3000:]}")
+        ms, reply = _gui_poke(port, {"pokes": [poke], "length": 9})
+        log(f"eval2 [{card}]: python -m ipoke_tpu_torch.eval.gui: serving {started:.1f} s after its "
+            f"start; one POST /poke {ms:.1f} ms, {len(reply['frames'])} frames")
+        if len(reply["frames"]) != 10:
+            raise SystemExit(f"eval2: eval.gui answered {len(reply['frames'])} frames")
+    finally:
+        gui_proc.terminate()
+        try:
+            gui_proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            gui_proc.kill()
+            gui_proc.wait()
+    return {"interactive_s": inter_s, "gui_start_s": started, "gui_poke_ms": ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1708,7 +1993,8 @@ def main():
         art = phase_artifact(device, card, spec, params, student, Path(tmp))
     log(f"artifact: the phase took {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-        ev = phase_eval(device, card, entry, spec, params, tmp)
+        ev, cut = phase_eval(device, card, entry, spec, params, tmp)
+        ev2 = phase_eval2(device, card, entry, spec, params, tmp, cut)
     del params
     train = phase_train(device, card, entry)
     torch.cuda.empty_cache()   # the child of the resume phase needs the train step's memory
@@ -1731,6 +2017,9 @@ def main():
              stage1_step_launches=stage1["launches"][name],
              **{f"eval_{m}_launches": ev[m]["launches"][name]
                 for m in ("run_fvd", "run_diversity", "run_samples", "validate", "test_fvd")},
+             **{f"eval_{m}_launches": ev2[m]["launches"][name]
+                for m in ("accuracy", "kps_acc", "control_sensitivity", "transfer")},
+             gui_poke_launches=[p[name] for p in ev2["gui"]["launches_per_poke"]],
              eval_topk_train_launches=ev["topk"]["launches"][name],
              eval_topk_resume_launches=ev["topk_resume"]["launches"][name],
              resume_train_step_launches=resume["launches"][name],
@@ -1750,6 +2039,7 @@ def main():
         raise SystemExit(f"a kernel of the path never launched: {rows}")
     print(json.dumps({"data": data}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)
+    print(json.dumps({"eval2": ev2}, default=float), flush=True)
     print(json.dumps({"stage1": stage1}, default=float), flush=True)
     print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"train": train}), flush=True)

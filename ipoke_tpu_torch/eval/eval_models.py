@@ -15,12 +15,12 @@ import os
 import subprocess
 import sys
 
-from ipoke_tpu_torch.eval.test_modes import ALL_MODES
+from ipoke_tpu_torch.eval.test_modes import MODES
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m ipoke_tpu_torch.eval.eval_models")
-    ap.add_argument("-e", "--eval", default="fvd", choices=list(ALL_MODES))
+    ap.add_argument("-e", "--eval", default="fvd", choices=list(MODES))
     ap.add_argument("--names", default="configs/model_names.txt")
     ap.add_argument("-c", "--config", default="configs/second_stage.yaml")
     ap.add_argument("--base_dir", default="logs")

@@ -13,7 +13,8 @@ the top-k checkpoints kept; ``test`` runs a test mode of
     python -m ipoke_tpu_torch.experiments.second_stage train -c <cfg> -m <name> \
         [--max-steps N] [--base_dir DIR] [--device cpu]
     python -m ipoke_tpu_torch.experiments.second_stage test -c <cfg> -m <name> \
-        [--mode {samples,fvd,diversity}] [--base_dir DIR] [--device cpu]
+        [--mode {samples,fvd,accuracy,diversity,control_sensitivity,transfer,kps_acc}] \
+        [--base_dir DIR] [--device cpu]
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from ipoke_tpu_torch.data.loader import to_device
 from ipoke_tpu_torch.eval import test_modes
 from ipoke_tpu_torch.experiments import base
 from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_loader, version_dir
+from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.flows.loss import flow_loss
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.models import second_stage
@@ -172,14 +174,17 @@ def restore_train_state(tree, optimizer, template, spec, device=None):
 
 
 @torch.no_grad()
-def validate(params, spec, config, datamod, timings=None):
+def validate(params, spec, config, datamod, log_dir=None, timings=None):
     """``flow_loss-val`` and ``FVD-val`` over the first
     ``training.max_val_batches`` batches of the val split, as JAX's
     ``SecondStageExperiment.validate``: the density loss of each batch, and
     one sample per example on key ``split`` of ``prng_key(123)`` against the
-    example's frames 1..T-1 (``logging.n_fvd_samples`` at most).  JAX's
-    latent scatter (``_log_latents``, a PNG) is not ported (ROADMAP queue 1
-    item 5).  ``timings`` as in ``eval/test_modes``."""
+    example's frames 1..T-1 (``logging.n_fvd_samples`` at most).  Then, as
+    JAX's, the latent scatter (``log_latents``) to ``<log_dir>/latents.png``,
+    the run's log directory (a run without one draws none); where it fails
+    (no matplotlib) the validation logs "latent scatter skipped: ..." and
+    returns its metrics all the same.  ``timings`` as in ``eval/test_modes``,
+    with ``latents_s``."""
     device = test_modes.params_device(params)
     clock = test_modes.Clock(device, timings)
     acc = FVDAccumulator(n_samples=int(config.get("logging", {}).get("n_fvd_samples", 1000)),
@@ -201,8 +206,48 @@ def validate(params, spec, config, datamod, timings=None):
     fvd_val = acc.compute() if acc._real else float("nan")
     clock.out["i3d_s"] = clock.out.get("i3d_s", 0.0) + acc.feature_s
     clock.out["frechet_s"] = clock.out.get("frechet_s", 0.0) + acc.frechet_s
-    log.info("validation: the latent scatter (_log_latents) is not ported (ROADMAP queue 1 item 5)")
+    if log_dir is not None:
+        t0 = time.perf_counter()
+        try:
+            log_latents(params, spec, datamod, os.path.join(log_dir, "latents.png"))
+        except Exception as e:   # noqa: BLE001  (a plot must never stop training, as JAX's)
+            log.warning("latent scatter skipped: %s", e)
+        clock.add("latents_s", t0)
     return {"FVD-val": fvd_val, "flow_loss-val": float(np.mean(losses)) if losses else float("nan")}
+
+
+@torch.no_grad()
+def latent_samples(params, spec, datamod, n_batches=2):
+    """The latents of JAX's ``_log_latents`` over the first ``n_batches``
+    val batches (``max_val_batches`` does not apply): the motion encoder's
+    posterior means, and flow samples ``reverse(z, cond)`` (K2 on the card)
+    with z drawn in the latent's shape from ``split`` of ``prng_key(5)``,
+    one key per batch.  Returns (means, samples), each (examples, features)
+    numpy."""
+    device = test_modes.params_device(params)
+    z_post, z_samp = [], []
+    rng = prng.prng_key(5)
+    for bi, raw in enumerate(datamod.loader("val")):
+        if bi >= n_batches:
+            break
+        batch = to_device(raw, device, BATCH_KEYS)
+        motion, mu = second_stage.encode_first_stage(params, spec, batch["images"])
+        z_post.append(mu.reshape(mu.shape[0], -1).float().cpu().numpy())
+        cond = second_stage.embed_cond(params, spec, batch["images"][:, 0], batch["poke"])
+        rng, sub = prng.split(rng)
+        z = prng.normal(sub, tuple(motion.shape[:-1]) + (spec.flow_in_channels,), device)
+        z_inn = transformer.reverse(params["flow"], spec.flow, z, cond)
+        z_samp.append(z_inn.reshape(z.shape[0], -1).float().cpu().numpy())
+    return np.concatenate(z_post), np.concatenate(z_samp)
+
+
+def log_latents(params, spec, datamod, path, n_batches=2):
+    """JAX's ``_log_latents``: ``latent_samples`` as a 2-D scatter
+    (``utils/logging.latent_scatter``, matplotlib) at ``path``."""
+    from ipoke_tpu_torch.utils.logging import latent_scatter
+
+    z_post, z_samp = latent_samples(params, spec, datamod, n_batches)
+    return latent_scatter(path, {"posterior_mean": z_post, "flow_samples": z_samp})
 
 
 # the metrics of JAX's chunked step (train/chunked.make_chunked_trainer)
@@ -314,7 +359,8 @@ def train(config, dirs, device=None, max_steps=None):
 
     def run_validation(step_i):
         t0 = time.perf_counter()
-        metrics = validate({**frozen, **run["state"].params}, spec, config, datamod)
+        metrics = validate({**frozen, **run["state"].params}, spec, config, datamod,
+                           log_dir=dirs.get("log"))
         val_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         if MONITOR in metrics:
@@ -357,7 +403,7 @@ def main(argv=None):
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("--max-steps", type=int, default=None)
-    ap.add_argument("--mode", default="samples", choices=list(test_modes.ALL_MODES),
+    ap.add_argument("--mode", default="samples", choices=list(test_modes.MODES),
                     help="test mode (test only)")
     ap.add_argument("--base_dir", default=None,
                     help="run tree root (default: the config's general.base_dir, else logs)")
@@ -372,7 +418,6 @@ def main(argv=None):
     except RuntimeError as e:   # no CUDA device and no --device
         raise SystemExit(f"{e}; on the command line: --device cpu") from None
     if args.command == "test":
-        test_modes.mode_fn(args.mode)   # an unported mode raises before any loading
         cfg, dirs = load_parameters(args.config, args.model, base_dir=args.base_dir,
                                     test_mode=args.mode)
         print(json.dumps(test(cfg, dirs, mode=args.mode, device=device), default=float), flush=True)

@@ -13,8 +13,7 @@ the run's saved config wins over ``-c``), as JAX's ``main.py``'s
 ``restart``.  Every trainer appends its records to
 ``<base_dir>/<experiment>/log/<model>/metrics.jsonl``, and on SIGTERM or
 SIGINT saves ``last.npz`` after the step in flight and exits.  It runs on
-the CUDA card unless ``--device cpu`` is given.  A test mode the port lacks
-raises ``NotImplementedError`` naming its ROADMAP item.
+the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -48,7 +47,6 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     from ipoke_tpu_torch.config import load_parameters
-    from ipoke_tpu_torch.eval import test_modes
     from ipoke_tpu_torch.experiments import select_experiment
 
     try:
@@ -59,8 +57,6 @@ def main(argv=None):
                                    restart=args.resume, test_mode=args.test)
     experiment = select_experiment(config, dirs)
     if args.test != "none":
-        if experiment.name == "second_stage":
-            test_modes.mode_fn(args.test)   # an unported mode raises before any loading
         result = experiment.test(args.test, device=device)
         print(json.dumps(result, default=float), flush=True)
         return result

@@ -29,9 +29,9 @@ def _gaussian_kernel(size=11, sigma=1.5, device="cpu"):
     return torch.outer(g, g)
 
 
-def ssim(pred, target, kernel_size=11, sigma=1.5, data_range=1.0, k1=0.01, k2=0.03):
-    """Mean SSIM with a Gaussian window (pytorch-lightning's defaults), a
-    depthwise VALID conv per channel.  pred/target: (B, H, W, C)."""
+def _ssim_map(pred, target, kernel_size=11, sigma=1.5, data_range=1.0, k1=0.01, k2=0.03):
+    """The SSIM map (B, C, H', W') with a Gaussian window (pytorch-lightning's
+    defaults), a depthwise VALID conv per channel.  pred/target: (B, H, W, C)."""
     p = _denorm(pred).float().permute(0, 3, 1, 2)
     t = _denorm(target).float().permute(0, 3, 1, 2)
     c = p.shape[1]
@@ -46,9 +46,20 @@ def ssim(pred, target, kernel_size=11, sigma=1.5, data_range=1.0, k1=0.01, k2=0.
     mu_pt = filt(p * t) - mu_p * mu_t
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
-    ssim_map = ((2 * mu_p * mu_t + c1) * (2 * mu_pt + c2)) / (
+    return ((2 * mu_p * mu_t + c1) * (2 * mu_pt + c2)) / (
         (mu_p ** 2 + mu_t ** 2 + c1) * (mu_pp + mu_tt + c2))
-    return torch.mean(ssim_map)
+
+
+def ssim(pred, target, **kw):
+    """Mean SSIM over the batch (``_ssim_map``'s window and constants).
+    pred/target: (B, H, W, C)."""
+    return torch.mean(_ssim_map(pred, target, **kw))
+
+
+def ssim_per_frame(pred, target, **kw):
+    """(B,) SSIM of each frame, as JAX's ``vmap`` of ``ssim`` over single
+    frames.  pred/target: (B, H, W, C)."""
+    return _ssim_map(pred, target, **kw).mean(dim=(1, 2, 3))
 
 
 def ssim_video(pred, target, **kw):

@@ -5,8 +5,9 @@ counterpart of ``ipoke_tpu/utils/logging.py``).
 ``{"step", "time", "<prefix><key>": float, ...}`` to
 ``<log_dir>/metrics.jsonl``, as JAX's does; ``log_video`` / ``log_image``
 write media files beside it.  wandb is an optional import: where it is
-missing the logger warns and keeps the JSONL sink.  JAX's ``latent_scatter``
-(matplotlib, UMAP) waits for ROADMAP queue 1 item 3.
+missing the logger warns and keeps the JSONL sink.  ``latent_scatter``
+draws the stage-2 validation's scatter of latents with matplotlib, imported
+when it is called.
 """
 from __future__ import annotations
 
@@ -76,3 +77,37 @@ def read_metrics(log_dir):
         return []
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def latent_scatter(path, latents: dict, max_points=1000):
+    """A 2-D embedding of named latent collections, one colour each, written
+    to ``path`` (the reference's log_umap, utils/logging.py:28-49): each
+    collection flattened per row, at most ``max_points`` rows of it, embedded
+    together by umap-learn's ``UMAP`` where it is installed, else by
+    ``utils/umap_lite.UMAPLite``.  Needs matplotlib."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    try:
+        from umap import UMAP
+
+        reducer = UMAP()
+    except Exception:   # noqa: BLE001  (no umap-learn, or it fails to import: JAX's fallback)
+        from ipoke_tpu_torch.utils.umap_lite import UMAPLite
+
+        reducer = UMAPLite()
+    all_x = np.concatenate([np.asarray(v).reshape(len(v), -1)[:max_points] for v in latents.values()])
+    emb = reducer.fit_transform(all_x)
+    fig, ax = plt.subplots(figsize=(6, 6))
+    off = 0
+    for name, v in latents.items():
+        n = min(len(v), max_points)
+        ax.scatter(emb[off: off + n, 0], emb[off: off + n, 1], s=3, label=name, alpha=0.5)
+        off += n
+    ax.legend()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path

@@ -1,5 +1,6 @@
 """Video and image writing (the port's copy of ``ipoke_tpu/utils/video.py``'s
-``to_uint8``, ``save_video``, ``save_image`` and ``enrollment``): videos by
+``to_uint8``, ``save_video``, ``save_image``, ``enrollment`` and
+``preprocess_image``, with ``png_bytes`` for images sent over HTTP): videos by
 cv2's MP4V writer where cv2 is installed, else as ``.npy``; images as PNG
 written with the standard library (``zlib`` + ``struct``), so no image
 package is needed.  Frames come in as [-1, 1] float RGB or uint8.
@@ -71,24 +72,30 @@ def _filter_rows(arr, filters):
     return np.concatenate([ftype[:, None], out], axis=1)
 
 
-def save_image(frame, path, filters=(0,)):
+def png_bytes(frame, filters=(0,)):
     """frame: (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) in [-1, 1] or uint8
-    -> an 8-bit PNG at ``path`` (grey, RGB or RGBA, as PIL's ``fromarray``
-    writes it).  Any other shape raises.  ``filters``: the PNG row filters,
-    cycled over the rows (by default None on every row; ``range(5)`` uses
-    all five, as an adaptive encoder such as libpng's does).  Returns ``path``."""
+    -> the bytes of an 8-bit PNG of it (grey, RGB or RGBA, as PIL's
+    ``fromarray`` writes it).  Any other shape raises.  ``filters``: the PNG
+    row filters, cycled over the rows (by default None on every row;
+    ``range(5)`` uses all five, as an adaptive encoder such as libpng's
+    does)."""
     arr = to_uint8(frame)
     if arr.ndim == 2:
         arr = arr[..., None]
     if arr.ndim != 3 or arr.shape[-1] not in _PNG_COLOR_TYPES:
         raise ValueError(f"save_image: a frame of shape {arr.shape} is not an image")
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     h, w, c = arr.shape
     rows = _filter_rows(np.ascontiguousarray(arr), tuple(filters))
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0))
-           + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-           + _png_chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def save_image(frame, path, filters=(0,)):
+    """``png_bytes(frame, filters)`` written to ``path``; returns ``path``."""
+    png = png_bytes(frame, filters)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)
     return path
@@ -102,3 +109,16 @@ def enrollment(frames, pad=2):
     for i, f in enumerate(arr):
         out[:, i * (w + pad): i * (w + pad) + w] = f
     return out
+
+
+def preprocess_image(img, multiple=64):
+    """``img`` centre-cropped to a multiple of ``multiple`` in height and
+    width (the reference's utils/general.py:28-42, for an image a user gives
+    the GUI)."""
+    arr = np.asarray(img)
+    h, w = arr.shape[:2]
+    nh = (h // multiple) * multiple
+    nw = (w // multiple) * multiple
+    top = (h - nh) // 2
+    left = (w - nw) // 2
+    return arr[top: top + nh, left: left + nw]

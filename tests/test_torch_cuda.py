@@ -422,6 +422,75 @@ def test_metrics_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_pose_net_on_the_card_matches_the_cpu(cuda):
+    """The pose net's heatmaps of 3 frames (64², upscaled to 256²; one of
+    300², shrunk with the antialiased resize) on the card and on the CPU
+    (oneDNN off) within METRIC_TOL; keypoints equal where the first peak
+    leads the second by more than that."""
+    from ipoke_tpu_torch.metrics import pose
+
+    gen = torch.Generator().manual_seed(3)
+    for size in (64, 300):
+        x = torch.rand(3, size, size, 3, generator=gen) * 2 - 1
+        with torch.backends.mkldnn.flags(enabled=False):
+            ref = pose.heatmaps(x)
+        got = pose.heatmaps(x.to(cuda))
+        assert got.device.type == "cuda" and got.shape == ref.shape == (3, 64, 64, 17)
+        assert _rel(got, ref) <= METRIC_TOL, (size, _rel(got, ref))
+        top2 = ref.reshape(3, -1, 17).topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > METRIC_TOL * (1 + ref.abs().max())
+        kp_card = pose.get_max_preds(got)[0].cpu()
+        assert torch.equal(kp_card[clear], pose.get_max_preds(ref)[0][clear])
+
+
+@pytest.mark.gpu
+def test_gui_poke_on_the_card(cuda):
+    """One POST /poke to the GUI of a tiny session on the card: length + 1
+    frames, 4 K2 launches per MaCowStep of the flow, and the video of the
+    same key equal to the CPU session's within METRIC_TOL."""
+    import http.client
+    import json
+    import threading
+
+    import numpy as np
+
+    from ipoke_tpu_torch.eval import gui
+    from ipoke_tpu_torch.eval.interactive import InteractiveSession
+    from ipoke_tpu_torch.utils import synth
+
+    spec = _tiny_spec()
+    params = synth.synth_params(spec, seed=0, device=cuda)
+    params = dict(params, flow=synth.set_flow_output_gains(params["flow"], 0.02))
+    image = np.random.default_rng(0).uniform(-1, 1, (32, 32, 3)).astype(np.float32)
+    pokes = [{"x": 100, "y": 60, "dx": 20, "dy": -8}]
+    sess = InteractiveSession(params, spec)
+    sess.set_image(image)
+    server = gui.make_server(sess, lambda i: image, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        n0 = k2.macow_unit_inverse.launches
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        conn.request("POST", "/poke", body=json.dumps({"pokes": pokes, "length": 4}))
+        resp = conn.getresponse()
+        reply = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200 and len(reply["frames"]) == 5
+        assert k2.macow_unit_inverse.launches - n0 == 4 * sum(spec.flow.num_steps)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    card = InteractiveSession(params, spec, fixed_seed=True)
+    cpu = InteractiveSession(_copy_to(params, "cpu"), spec, fixed_seed=True)
+    for s in (card, cpu):
+        s.set_image(image)
+    with torch.backends.mkldnn.flags(enabled=False):
+        ref = torch.from_numpy(cpu.generate(pokes, length=4)[0])
+    assert _rel(torch.from_numpy(card.generate(pokes, length=4)[0]), ref) <= METRIC_TOL
+
+
+@pytest.mark.gpu
 def test_fvd_run_on_the_card(cuda, tmp_path):
     """``test --mode fvd`` of a tiny second stage on the card, end to end:
     K2 in every sampling call, the score finite, its features on the card,

@@ -306,15 +306,25 @@ def test_main_trains_and_tests_an_encoder(tmp_path, kind):
     assert again["state"].step == 2 and [v["step"] for v in again["val"]] == [2]
 
 
-def test_main_raises_on_an_unported_test_mode(tmp_path):
+def test_main_raises_on_an_unported_test_mode(tmp_path, monkeypatch):
+    """Every mode of JAX's ``--test`` is ported: ``accuracy`` reaches its
+    function with the run's params; a mode JAX lacks is refused."""
+    from ipoke_tpu_torch.eval import test_modes
+
     path = str(tmp_path / "s.yaml")
     with open(os.path.join(ROOT, "configs", "debug_second_stage.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg["general"]["base_dir"] = str(tmp_path / "logs")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(["-c", path, "-m", "t", "--device", "cpu", "--test", "accuracy"])
+    seen = []
+    monkeypatch.setitem(test_modes.MODES, "accuracy",
+                        lambda params, spec, config, datamod, dirs, timings=None:
+                        seen.append(config["general"]["test"]) or {"ran": True})
+    assert port_main(["-c", path, "-m", "t", "--device", "cpu", "--test", "accuracy"]) == {"ran": True}
+    assert seen == ["accuracy"]
+    with pytest.raises(SystemExit):
+        port_main(["-c", path, "-m", "t", "--device", "cpu", "--test", "nope"])
 
 
 # ---------------------------------------------------------------------------

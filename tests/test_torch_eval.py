@@ -245,11 +245,33 @@ def test_run_samples_writes_jax_layout(model, record, tmp_path):
             assert np.array_equal(got, np.asarray(Image.open(tmp_path / "jax.png")))
 
 
-def test_unported_modes_raise():
-    for mode in ("accuracy", "control_sensitivity", "transfer", "kps_acc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-            test_modes.mode_fn(mode)
-    assert test_modes.mode_fn("fvd") is test_modes.run_fvd
+def test_every_test_mode_dispatches(monkeypatch):
+    """``main.TEST_MODES`` are the choices of the repository's ``main.py
+    --test``, and each mode but ``none`` maps to its function in
+    ``test_modes.MODES``, as JAX's ``SecondStageExperiment.test`` maps it;
+    an unknown mode raises."""
+    import argparse
+    import importlib.util
+
+    from ipoke_tpu_torch import main as port_main
+    from test_torch_gan_trainer import ROOT
+
+    seen = {}
+
+    def capture(self, *a, **k):
+        seen["parser"] = self
+        return argparse.Namespace()
+
+    spec = importlib.util.spec_from_file_location("jax_main", ROOT / "main.py")
+    jax_main = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_main)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    jax_main.parse_args()
+    (action,) = [a for a in seen["parser"]._actions if "--test" in a.option_strings]
+    assert tuple(action.choices) == port_main.TEST_MODES
+    assert list(test_modes.MODES) == [m for m in port_main.TEST_MODES if m != "none"]
+    for mode in test_modes.MODES:
+        assert test_modes.mode_fn(mode) is getattr(test_modes, f"run_{mode}")
     with pytest.raises(ValueError, match="unknown test mode"):
         test_modes.mode_fn("nope")
 
@@ -375,7 +397,7 @@ def test_second_stage_trainer_keeps_top_k_and_test_loads_best(model, tmp_path, m
     values = [5.0, 1.0, 1.0, 4.0, 3.0, 3.0]
     flows = {}
 
-    def scripted(params, spec, config, datamod, timings=None):
+    def scripted(params, spec, config, datamod, log_dir=None, timings=None):
         assert isinstance(datamod, PortDataModule)
         flows[len(flows)] = {k: v.detach().clone() for k, v in flatten(params["flow"]).items()}
         return {"FVD-val": values[len(flows) - 1], "flow_loss-val": 0.0}
@@ -410,8 +432,8 @@ def test_second_stage_trainer_keeps_top_k_and_test_loads_best(model, tmp_path, m
 
 def test_second_stage_test_cli(model, tmp_path, stand_in_features):
     """``test --mode fvd`` on the run tree of a config without checkpoints
-    (every component from the seed, as JAX's ``_load_for_test``); an
-    unported mode raises before anything loads."""
+    (every component from the seed, as JAX's ``_load_for_test``); a mode
+    that is not one of JAX's is refused before anything loads."""
     cfg = dict(model[0], general=dict(model[0]["general"], base_dir=str(tmp_path / "logs")),
                testing={"n_samples_fvd": 2, "seed": 0})
     path = tmp_path / "tiny.yaml"
@@ -420,8 +442,8 @@ def test_second_stage_test_cli(model, tmp_path, stand_in_features):
     with open(tmp_path / "logs" / "serve_ckpt" / "generated" / "m" / "metrics" / "fvd.json") as f:
         out = json.load(f)
     assert out["n"] == 2 and np.isfinite(out["FVD_UNPRETRAINED"])
-    with pytest.raises(NotImplementedError, match="metrics/pose.py"):
-        experiment.main(["test", "-c", str(path), "-m", "m", "--mode", "accuracy", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        experiment.main(["test", "-c", str(path), "-m", "m", "--mode", "nope", "--device", "cpu"])
     if not torch.cuda.is_available():   # no quiet fallback to the CPU
         with pytest.raises(SystemExit, match="no CUDA device"):
             experiment.main(["test", "-c", str(path), "-m", "m", "--mode", "fvd"])

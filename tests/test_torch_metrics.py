@@ -60,14 +60,19 @@ def clips():
 # image metrics
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fn", ["psnr", "ssim", "ssim_video"])
+@pytest.mark.parametrize("fn", ["psnr", "ssim", "ssim_video", "ssim_per_frame"])
 def test_image_metrics_match_jax(clips, fn):
+    """``ssim_per_frame``: JAX's run_accuracy takes ``vmap`` of ``ssim`` over single frames."""
     a, b = clips
     if fn != "ssim_video":
         a, b = a[:, 0], b[:, 0]
     got = getattr(image, fn)(t(a), t(b))
-    ref = getattr(jimage, fn)(jnp.asarray(a), jnp.asarray(b))
-    assert got.dim() == 0
+    if fn == "ssim_per_frame":
+        ref = jax.vmap(lambda x, y: jimage.ssim(x[None], y[None]))(jnp.asarray(a), jnp.asarray(b))
+        assert tuple(got.shape) == (a.shape[0],)
+    else:
+        ref = getattr(jimage, fn)(jnp.asarray(a), jnp.asarray(b))
+        assert got.dim() == 0
     assert _err(got, ref) <= IMG_TOL
 
 
