@@ -137,7 +137,28 @@ Phases, each fatal on failure:
              save, the image AE's test through python -m
              ipoke_tpu_torch.main; then 2 stage-2 steps through main on the
              tree at cut depth.  No kernel launches on any of these paths.
- 12. report  a JSON line of the data phase, one of the eval phase, one of
+ 11b. prep  data preparation through python -m ipoke_tpu_torch.data.prepare
+             in a child process: 4 MJPG clips of textured layers in known
+             motion (pwc.synthetic_pair_layered's kind, 40 frames at 256^2,
+             cv2.VideoWriter), --mode all at 128^2 with lag 10 and
+             IPOKE_WEIGHTS an empty directory, so PWC-lite fits itself on
+             the card (900 Adam steps of 8 pairs at 64^2, deterministic;
+             fitted again from another key while it loses to Horn-Schunck
+             on validation pairs) and writes pwc_lite.npz; frames, 30 flows
+             per clip, meta.p and meta_kp_nn.p (without cv2: extract_frames
+             must raise ImportError; frames written at 128^2, compute_flows
+             here, then --mode prepare and pose_estimation as children).
+             Printed: the fit's s and ms per step, flow pairs/s at B=8, the
+             meta and NN seconds, the command's; checked: the flows, the NN
+             ids from other clips, the fitted net from the child's npz
+             under the nine guards of the JAX package's tests/test_pwc.py
+             on the card, the card's pwc_flow against the CPU's and the
+             child's files (PREP_FLOW_TOL), the child's flows against the
+             layers' known motion (PREP_EPE_RATIO of the displacement and
+             Horn-Schunck's EPE on the extracted frames, which must beat no
+             flow); then one batch of the tree through StaticDataModule and
+             2 stage-2 steps through main at cut depth.  No kernel launches.
+ 12. report  a JSON line of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
@@ -153,6 +174,7 @@ import io as pyio
 import json
 import logging
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -1931,6 +1953,331 @@ def phase_data(device, card, entry, train_step_ms, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# data preparation: raw videos -> frames, PWC-lite flows, meta.p, NN ids
+# ---------------------------------------------------------------------------
+
+PREP_VIDEOS, PREP_FRAMES, PREP_STORED, PREP_SIZE, PREP_LAG = 4, 40, 256, 128, 10
+PREP_TIMEOUT_S = 600       # the prepare child, the PWC-lite fit included
+PREP_FLOW_TOL = 1e-4       # the card's pwc_flow against the CPU's, relative to 1 + max|ref|
+# The clips are pwc.synthetic_pair_layered's kind, the regime PWC-lite is
+# fitted on, at 256^2: a textured disc (radius 1/6 to 1/3.5 of the frame)
+# over a textured background moving the other way (v_bg = -0.35 v_fg), each
+# texture tanh of PREP_WAVES plane waves per channel (wavelengths
+# PREP_WAVELENGTHS stored px), so a frame is the layers translated exactly.
+# Over the lag at 128^2 the disc moves 4-7 px and the background 1.4-2.5 px.
+# Checked on the child's flow files of every PREP_EVERY-th pair, outside the
+# occlusion band (pwc.synthetic_pair_layered's) and a border as wide as the
+# largest displacement: PWC-lite's mean EPE under PREP_EPE_RATIO of the mean
+# displacement (the guards' clean-region limit) and under Horn-Schunck's on
+# the same extracted frames; Horn-Schunck's under that of no flow.  On the
+# CPU, of a 2.652 px mean displacement: JAX's own fit from 1234 (JAX's
+# pwc_flow) 0.836 px, Horn-Schunck 1.477, JAX's flows with (dy, dx) swapped
+# 2.270 (tests/test_torch_prepare.py, -m slow).
+PREP_WAVES, PREP_WAVELENGTHS, PREP_EVERY = 24, (16.0, 80.0), 5
+PREP_EPE_RATIO = 0.5
+_PREP_LINES = {
+    "fit": r"pwc: fit (\d+) steps .* \((\d+) fits?\) in ([\d.]+) s \(([\d.]+) ms per step\)",
+    "validation": r"pwc: fit (\d+), validation \(value < limit\): (.*)",
+    "flows": r"prepare: (\S+): extract ([\d.]+) s; (\d+) flow pairs in ([\d.]+) s",
+    "meta": r"prepare: meta in ([\d.]+) s",
+    "nn": r"prepare: nn ids in ([\d.]+) s",
+}
+
+
+def _texture(rng):
+    """A smooth RGB texture as a function of position: ``at(sy, sx)`` is it
+    on the stored grid shifted by (sy, sx), (H, W, 3) in (-1, 1), tanh of a
+    sum of plane waves (as two matrix products: sin(a + b) splits)."""
+    n = PREP_WAVES
+    k = 2 * np.pi / rng.uniform(*PREP_WAVELENGTHS, (3, n))
+    ang, phase = rng.uniform(0, 2 * np.pi, (2, 3, n))
+    amp = rng.normal(0, np.sqrt(2.0 / n), (3, n))
+    ky, kx = k * np.sin(ang), k * np.cos(ang)
+    grid = np.arange(PREP_STORED, dtype=np.float64)
+
+    def at(sy, sx):
+        ay = (grid[:, None, None] - sy) * ky + phase      # (H, 3, n)
+        ax = (grid[:, None, None] - sx) * kx              # (W, 3, n)
+        u = np.concatenate([amp * np.sin(ay), amp * np.cos(ay)], -1)
+        v = np.concatenate([np.cos(ax), np.sin(ax)], -1)
+        return np.tanh(np.einsum("hcn,wcn->hwc", u, v))
+    return at
+
+
+def _layer_clip(rng):
+    """One clip's motion and frames: ``(frame(t), mask(t, q))``, frame t at
+    PREP_STORED^2 in [-1, 1] and the disc's soft mask of frame t at stored
+    positions q (..., 2); the velocities (stored px per frame)."""
+    fg, bg = _texture(rng), _texture(rng)
+    speed, heading = rng.uniform(0.8, 1.4), rng.uniform(0, 2 * np.pi)
+    v_fg = speed * np.array([np.sin(heading), np.cos(heading)])
+    v_bg = -0.35 * v_fg
+    radius = rng.uniform(PREP_STORED / 6.0, PREP_STORED / 3.5)
+    c0 = rng.uniform(0.35, 0.65, 2) * PREP_STORED - v_fg * (PREP_FRAMES - 1) / 2
+
+    def mask(t, q):
+        d = np.sqrt(((q - c0 - v_fg * t) ** 2).sum(-1))
+        return 1.0 / (1.0 + np.exp(-(radius - d) / 3.0))   # the regime's 1.5 px edge at 128^2
+
+    yy, xx = np.mgrid[0:PREP_STORED, 0:PREP_STORED].astype(np.float64)
+    pos = np.stack([yy, xx], -1)
+
+    def frame(t):
+        m = mask(t, pos)[..., None]
+        return m * fg(*(v_fg * t)) + (1 - m) * bg(*(v_bg * t))
+    return frame, mask, v_fg, v_bg
+
+
+def _prep_videos(root, with_cv2, seed=0):
+    """PREP_VIDEOS clips of moving textured layers, PREP_FRAMES frames at
+    PREP_STORED^2: MJPG .avi files with cv2, else the frames themselves at
+    PREP_SIZE^2 (utils/video.save_image, resized by data/image).  Returns
+    each clip's (mask, v_fg, v_bg)."""
+    from ipoke_tpu_torch.data.image import resize
+    from ipoke_tpu_torch.utils.video import save_image, to_uint8
+
+    rng = np.random.default_rng(seed)
+    motion = {}
+    for v in range(PREP_VIDEOS):
+        name = f"clip{v}"
+        frame, mask, v_fg, v_bg = _layer_clip(rng)
+        motion[name] = (mask, v_fg, v_bg)
+        if with_cv2:
+            import cv2
+
+            os.makedirs(root, exist_ok=True)
+            writer = cv2.VideoWriter(os.path.join(root, f"{name}.avi"), cv2.VideoWriter_fourcc(*"MJPG"),
+                                     25, (PREP_STORED, PREP_STORED))
+            for i in range(PREP_FRAMES):
+                writer.write(np.ascontiguousarray(to_uint8(frame(i))[..., ::-1]))
+            writer.release()
+        else:
+            for i in range(PREP_FRAMES):
+                small = np.asarray(resize(to_uint8(frame(i)), (PREP_SIZE, PREP_SIZE)))
+                save_image(small, os.path.join(root, name, f"frame_{i:06d}.png"), filters=range(5))
+    return motion
+
+
+def _layer_truth(mask, v_fg, v_bg, i):
+    """Pair (i, i + PREP_LAG)'s flow at PREP_SIZE^2 in its pixels (dy, dx)
+    and where it is checked: outside the occlusion band (either frame's disc
+    mask between 0.02 and 0.98, pwc.synthetic_pair_layered's band) and a
+    border as wide as the largest displacement."""
+    s = PREP_SIZE / PREP_STORED
+    qy, qx = np.mgrid[0:PREP_SIZE, 0:PREP_SIZE].astype(np.float64)
+    q = (np.stack([qy, qx], -1) + 0.5) / s - 0.5          # output pixel centres on the stored grid
+    m1, m2 = mask(i, q), mask(i + PREP_LAG, q)
+    gt = m1[..., None] * (v_fg * PREP_LAG * s) + (1 - m1[..., None]) * (v_bg * PREP_LAG * s)
+    occ = ((m1 > 0.02) | (m2 > 0.02)) & ~((m1 > 0.98) & (m2 > 0.98))
+    edge = int(np.ceil(np.abs(v_fg).max() * PREP_LAG * s)) + 1
+    keep = ~occ
+    keep[:edge], keep[-edge:], keep[:, :edge], keep[:, -edge:] = False, False, False, False
+    return gt.astype(np.float32), keep
+
+
+def _motion_epe(motion, flows, frames_of, device):
+    """Mean EPE against the layers' motion over every PREP_EVERY-th pair
+    where ``_layer_truth`` checks it: of ``flows`` (clip -> the pairs'
+    flows), of Horn-Schunck on the frames (``frames_of(clip, ids)``) on
+    ``device`` and of no flow (the mean displacement)."""
+    from ipoke_tpu_torch.ops import flow_ops, pwc
+
+    ids = list(range(0, PREP_FRAMES - PREP_LAG, PREP_EVERY))
+    sums = {k: [0.0, 0] for k in ("pwc", "hs", "zero")}
+    for name, (mask, v_fg, v_bg) in motion.items():
+        with torch.no_grad(), pwc.exact_f32():
+            hs = flow_ops.estimate_flow(frames_of(name, ids).to(device),
+                                        frames_of(name, [i + PREP_LAG for i in ids]).to(device)).cpu().numpy()
+        for j, i in enumerate(ids):
+            gt, keep = _layer_truth(mask, v_fg, v_bg, i)
+            for k, f in (("pwc", flows[name][i]), ("hs", hs[j]), ("zero", np.zeros_like(gt))):
+                e = np.sqrt(((f - gt) ** 2).sum(-1))
+                sums[k][0] += float(e[keep].sum())
+                sums[k][1] += int(keep.sum())
+    return dict({k: a / n for k, (a, n) in sums.items()}, pixels=sums["pwc"][1], pairs=len(ids) * len(motion))
+
+
+def phase_prep(device, card, entry, tmp):
+    """Data preparation through ``python -m ipoke_tpu_torch.data.prepare``
+    on the card: 4 clips of 40 frames at 256^2 of textured layers in known
+    motion (MJPG .avi by cv2.VideoWriter), ``--mode all --spatial_size 128
+    --flow_lag 10`` in a child process with IPOKE_WEIGHTS an empty
+    directory, so PWC-lite fits itself on the card (``fit_pwc_weights``)
+    and writes pwc_lite.npz; without cv2, ``extract_frames`` must raise
+    ImportError, the frames are written at 128^2 and ``compute_flows`` runs
+    here, then ``--mode prepare`` and ``--mode pose_estimation`` as
+    children.  Checked: 30 finite (128, 128, 2) flows per clip, meta.p and
+    meta_kp_nn.p (neighbours from other clips), the fitted net from the
+    child's npz under the guards of the JAX package's tests/test_pwc.py on
+    the card, the card's pwc_flow against the CPU's, the child's flows
+    against the layers' known motion (``_motion_epe``); then one batch of
+    the tree through StaticDataModule and 2 stage-2 steps through ``main``
+    at entry's width and cut depth."""
+    from ipoke_tpu_torch.data import prepare
+    from ipoke_tpu_torch.ops import pwc
+
+    t_phase = time.perf_counter()
+    out = {}
+    for mod in ("cv2", "PIL"):
+        out[f"{mod}_imports"] = importlib.util.find_spec(mod) is not None
+    log(f"prep [{card}]: cv2 importable: {out['cv2_imports']}; PIL importable: {out['PIL_imports']}")
+    videos, tree = os.path.join(tmp, "videos"), os.path.join(tmp, "tree")
+    weights = os.path.join(tmp, "weights")
+    os.makedirs(weights)
+    env = dict(os.environ, IPOKE_WEIGHTS=weights)
+    t0 = time.perf_counter()
+    motion = _prep_videos(videos if out["cv2_imports"] else tree, out["cv2_imports"])
+    out["videos_s"] = time.perf_counter() - t0
+    cmd = [sys.executable, "-m", "ipoke_tpu_torch.data.prepare", "--out", tree,
+           "--spatial_size", str(PREP_SIZE), "--flow_lag", str(PREP_LAG)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    if out["cv2_imports"]:
+        runs = [subprocess.run(cmd + ["--mode", "all", "--video_dir", videos], cwd=str(ROOT), env=env,
+                               capture_output=True, text=True, timeout=PREP_TIMEOUT_S)]
+    else:
+        try:
+            prepare.extract_frames(os.path.join(videos, "clip0.avi"), tree, PREP_SIZE)
+            raise SystemExit("prep: extract_frames ran without cv2")
+        except ImportError:
+            log(f"prep [{card}]: extract_frames raises ImportError without cv2, as JAX's does")
+        held = os.environ.get("IPOKE_WEIGHTS")
+        os.environ["IPOKE_WEIGHTS"] = weights
+        pwc.default_params.cache_clear()
+        try:
+            prepare.fit_pwc_weights(device)
+            for name in sorted(motion):
+                frames = sorted(os.path.join(tree, name, f) for f in os.listdir(os.path.join(tree, name)))
+                prepare.compute_flows(frames, PREP_LAG, os.path.join(tree, name))
+        finally:
+            pwc.default_params.cache_clear()
+            os.environ.pop("IPOKE_WEIGHTS")
+            if held is not None:
+                os.environ["IPOKE_WEIGHTS"] = held
+        runs = [subprocess.run(cmd + ["--mode", mode], cwd=str(ROOT), env=env, capture_output=True,
+                               text=True, timeout=PREP_TIMEOUT_S)
+                for mode in ("prepare", "pose_estimation")]
+    out["command_s"] = time.perf_counter() - t0
+    for r in runs:
+        if r.returncode != 0:
+            raise SystemExit(f"prep: the prepare child failed:\n{r.stderr[-3000:]}")
+    err = "".join(r.stderr for r in runs)
+    parsed = {k: re.findall(p, err) for k, p in _PREP_LINES.items()}
+    if out["cv2_imports"]:
+        (steps, fits, fit_s, step_ms), = parsed["fit"]
+        out["fit"] = {"steps": int(steps), "fits": int(fits), "s": float(fit_s),
+                      "ms_per_step": float(step_ms), "validation": [v for _, v in parsed["validation"]]}
+        for i, v in parsed["validation"]:
+            log(f"prep [{card}]: fit {i}, validation (value < limit): {v}")
+        out["flows"] = [{"clip": c, "extract_s": float(e), "pairs": int(n), "s": float(s)}
+                        for c, e, n, s in parsed["flows"]]
+        pairs, flow_s = sum(f["pairs"] for f in out["flows"]), sum(f["s"] for f in out["flows"])
+        out["pairs_per_s"] = pairs / flow_s
+    out["meta_s"], out["nn_s"] = float(parsed["meta"][0]), float(parsed["nn"][0])
+    log(f"prep [{card}]: python -m ipoke_tpu_torch.data.prepare ({'--mode all' if out['cv2_imports'] else '--mode prepare, then --mode pose_estimation'}) "
+        f"took {out['command_s']:.1f} s with start-up: "
+        + (f"PWC-lite fit {out['fit']['steps']} steps ({out['fit']['fits']} fits) in {out['fit']['s']:.1f} s "
+           f"({out['fit']['ms_per_step']:.2f} ms per step); {pairs} flow pairs at B=8 and "
+           f"{PREP_SIZE}^2 in {flow_s:.2f} s ({out['pairs_per_s']:.1f} pairs/s); " if out["cv2_imports"] else "")
+        + f"meta {out['meta_s']:.3f} s, NN ids {out['nn_s']:.3f} s")
+
+    # the tree: flows, meta.p, meta_kp_nn.p
+    n_pairs = PREP_FRAMES - PREP_LAG
+    flows = {}
+    for name in sorted(motion):
+        d = os.path.join(tree, name)
+        files = sorted(f for f in os.listdir(d) if f.endswith(".flow.npy"))
+        want = sorted(f"prediction_{i}_{i + PREP_LAG}.flow.npy" for i in range(n_pairs))
+        if files != want or len([f for f in os.listdir(d) if f.startswith("frame_")]) != PREP_FRAMES:
+            raise SystemExit(f"prep: {name} holds {files[:3]}... ({len(files)} flows), want {n_pairs}")
+        flows[name] = [np.load(os.path.join(d, f"prediction_{i}_{i + PREP_LAG}.flow.npy"))
+                       for i in range(n_pairs)]
+        if not all(f.shape == (PREP_SIZE, PREP_SIZE, 2) and np.isfinite(f).all() for f in flows[name]):
+            raise SystemExit(f"prep: {name}'s flows are not finite ({PREP_SIZE}, {PREP_SIZE}, 2)")
+    with open(os.path.join(tree, "meta_kp_nn.p"), "rb") as f:
+        meta = pickle.load(f)
+    nn = meta["nn_ids"]
+    if len(nn) != PREP_VIDEOS * n_pairs or (meta["vid"][nn] == meta["vid"]).any():
+        raise SystemExit(f"prep: meta_kp_nn.p holds {len(nn)} ids or a neighbour from the same clip")
+    out["meta_rows"] = len(nn)
+
+    # the fitted net, from the child's npz, on the card
+    _zero_counts()
+    params = pwc.load_params(os.path.join(weights, "pwc_lite.npz"), device)
+    guards = pwc.regime_guards(params, device)
+    out["guards"] = [{"check": c, "value": v, "limit": lim, "against_hs": rel} for c, v, lim, rel in guards]
+    for c, v, lim, _ in guards:
+        log(f"prep [{card}]: guard {c}: {v:.4f} < {lim:.4f}: {v < lim}")
+    if not all(v < lim for _, v, lim, _ in guards):
+        raise SystemExit(f"prep: the fitted PWC-lite fails a guard: {guards}")
+    from ipoke_tpu_torch.data.image import read_png
+
+    def frames_of(name, ids):
+        return torch.from_numpy(np.stack([
+            np.asarray(read_png(os.path.join(tree, name, f"frame_{i:06d}.png")), np.float32) / 127.5 - 1
+            for i in ids]))
+
+    f1, f2 = frames_of("clip0", (0, 1)), frames_of("clip0", (PREP_LAG, PREP_LAG + 1))
+    with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
+        on_card = pwc.pwc_flow(params, f1.to(device), f2.to(device)).cpu()
+        on_cpu = pwc.pwc_flow(pwc.load_params(os.path.join(weights, "pwc_lite.npz")), f1, f2)
+    rel = float((on_card - on_cpu).abs().max() / (1 + on_cpu.abs().max()))
+    out["card_vs_cpu_rel"] = rel
+    out["card_vs_child_rel"] = float(np.abs(on_card[0].numpy() - flows["clip0"][0]).max()
+                                     / (1 + np.abs(flows["clip0"][0]).max()))
+    motion_epe = _motion_epe(motion, flows, frames_of, device)
+    out["motion"] = motion_epe
+    n = _counts()
+    out["launches"] = dict(zip(("mcf_inverse", "macow_unit_inverse"), n))
+    log(f"prep [{card}]: pwc_flow card against CPU (same npz, 2 pairs at {PREP_SIZE}^2): max rel "
+        f"{rel:.3g} (tolerance {PREP_FLOW_TOL}); against the child's flow file {out['card_vs_child_rel']:.3g}; "
+        f"the layers' known motion on {motion_epe['pairs']} pairs ({motion_epe['pixels']} pixels outside "
+        f"the occlusion band and border, mean displacement {motion_epe['zero']:.3f} px): the child's "
+        f"PWC-lite flows mean EPE {motion_epe['pwc']:.3f} px (limits {PREP_EPE_RATIO} of the displacement, "
+        f"{PREP_EPE_RATIO * motion_epe['zero']:.3f}, and Horn-Schunck's), Horn-Schunck on the extracted "
+        f"frames {motion_epe['hs']:.3f} px (limit: no flow's, the displacement); K1/K2 launches {n}")
+    if not rel <= PREP_FLOW_TOL or not out["card_vs_child_rel"] <= PREP_FLOW_TOL:
+        raise SystemExit(f"prep: the card's pwc_flow disagrees with the CPU's or the child's: {out}")
+    if (not motion_epe["pwc"] < PREP_EPE_RATIO * motion_epe["zero"] or not motion_epe["pwc"] < motion_epe["hs"]
+            or not motion_epe["hs"] < motion_epe["zero"] or n != (0, 0)):
+        raise SystemExit(f"prep: the child's flows miss the layers' known motion, or a kernel launched: {out}")
+
+    # the chain into training: the port's loader, then 2 stage-2 steps
+    cfg = data_config(os.path.join(tree, "meta.p"), entry)
+    dm = StaticDataModule(cfg)
+    batch = next(iter(dm.loader("train")))
+    shapes = {k: tuple(batch[k].shape) for k in ("images", "poke", "flow")}
+    sz = entry.spatial_size
+    want = {"images": (cfg["batch_size"], entry.max_frames, sz, sz, 3),
+            "poke": (cfg["batch_size"], sz, sz, 2), "flow": (cfg["batch_size"], sz, sz, 2)}
+    log(f"prep [{card}]: StaticDataModule on the prepared tree (IperDataset, {len(dm.datasets['train'])} "
+        f"train examples): one batch {shapes}")
+    if shapes != want or not all(np.isfinite(batch[k]).all() for k in shapes):
+        raise SystemExit(f"prep: the loader's batch on the prepared tree: {shapes}, want {want}")
+    config = train_config(entry)
+    config["general"].update(experiment="second_stage", base_dir=os.path.join(tmp, "logs"))
+    config["architecture"]["num_steps"] = list(TOPK_NUM_STEPS)
+    config["data"] = cfg
+    config["training"].update(n_epochs=1, max_batches_per_epoch=10)
+    cfg_path = _write_config(os.path.join(tmp, "second_stage.yaml"), config)
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = port_main.main(["-c", cfg_path, "-m", "prep", "--device", "cuda", "--max-steps", "2"])
+    s2_s = time.perf_counter() - t0
+    n = _counts()
+    hist = run["history"]
+    log(f"prep [{card}]: stage-2 trainer through main on the prepared tree (num_steps "
+        f"{TOPK_NUM_STEPS}): {len(hist)} steps, flow_loss {[round(h['flow_loss'], 4) for h in hist]}; "
+        f"{s2_s:.1f} s; K1/K2 launches {n}")
+    if len(hist) != 2 or not all(np.isfinite(h["flow_loss"]) for h in hist) or n != (0, 0):
+        raise SystemExit(f"prep: the stage-2 trainer on the prepared tree failed: {hist}, {n}")
+    out["stage2"] = {"s": s2_s, "flow_loss": [h["flow_loss"] for h in hist]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"prep [{card}]: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def ptxas_report(log_text):
     """registers / shared memory / spills lines of nvcc -Xptxas -v."""
     keep = [ln.strip() for ln in log_text.splitlines()
@@ -2003,6 +2350,8 @@ def main():
     stage1 = phase_stage1(device, card, entry)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         data = phase_data(device, card, entry, train["step_ms_median"], tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
+        prep = phase_prep(device, card, entry, tmp)
 
     src = "ipoke_tpu_torch/csrc/{}.cu"
     rows = [
@@ -2026,6 +2375,7 @@ def main():
              eval_stage1_test_launches=stage1["test_launches"][name],
              image_ae_step_launches=data["img_encoder"]["launches"][name],
              poke_ae_step_launches=data["poke_encoder"]["launches"][name],
+             prep_launches=prep["launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -2037,6 +2387,7 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    print(json.dumps({"prep": prep}, default=float), flush=True)
     print(json.dumps({"data": data}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)
     print(json.dumps({"eval2": ev2}, default=float), flush=True)

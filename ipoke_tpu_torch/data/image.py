@@ -2,8 +2,10 @@
 
 The JAX package loads a frame with PIL: ``Image.open(path).convert("RGB")``,
 resized with ``Image.LANCZOS`` when its size is not the dataset's
-(``ipoke_tpu/data/datasets.py:_load_image``).  The card's machine has neither
-PIL nor cv2, so the port decodes PNG itself and ports PIL's resampler:
+(``ipoke_tpu/data/datasets.py:_load_image``); its data preparation reads a
+frame as ``convert("L").resize((16, 16))`` for the image-space neighbours.
+The port does both without PIL, so it depends on neither PIL nor cv2 (the
+card's machine has both, but the port does not rely on them):
 
 * ``read_png``: 8-bit, non-interlaced PNG (grey, RGB, palette, grey+alpha,
   RGBA) with the five row filters of the PNG standard, converted to RGB as
@@ -14,10 +16,15 @@ PIL nor cv2, so the port decodes PNG itself and ports PIL's resampler:
   and above-left), each diagonal one set of numpy operations.
   ``read_pngs`` undoes the filters of many images of one size together (a
   clip's frames), so each set of operations covers all of them.
-* ``resize_lanczos``: PIL's two-pass resample (``Resample.c``), horizontal
-  then vertical, with the Lanczos-3 kernel stretched by the scale, its
+* ``to_grey``: PIL's ``convert("L")`` of those pixels, ITU-R 601-2 luma in
+  PIL's 16-bit fixed point (``L24`` in ``Convert.c``).
+* ``resize_lanczos`` / ``resize``: PIL's two-pass resample (``Resample.c``),
+  horizontal then vertical, with the filter's kernel (Lanczos-3, or bicubic
+  with a = -0.5) stretched by the scale, its
   coefficients normalised and rounded to 22-bit fixed point, summed in
-  int32, and each pass rounded and clipped to uint8.
+  int32, and each pass rounded and clipped to uint8.  ``resize`` defaults to
+  bicubic, the filter ``Image.resize`` takes for a mode "L" or "RGB" image
+  when it is given none.
 """
 from __future__ import annotations
 
@@ -164,29 +171,44 @@ def read_png(path) -> np.ndarray:
     return decode_png(_read(path))
 
 
-def _lanczos(x):
-    def sinc(v):
-        v = np.asarray(v, np.float64) * math.pi
-        with np.errstate(invalid="ignore", divide="ignore"):
-            return np.where(v == 0.0, 1.0, np.sin(v) / np.where(v == 0.0, 1.0, v))
+def _sinc(v):
+    v = np.asarray(v, np.float64) * math.pi
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(v == 0.0, 1.0, np.sin(v) / np.where(v == 0.0, 1.0, v))
 
-    return np.where((-3.0 <= x) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
+
+def _lanczos(x):
+    return np.where((-3.0 <= x) & (x < 3.0), _sinc(x) * _sinc(x / 3.0), 0.0)
+
+
+def _bicubic(x):
+    """``bicubic_filter`` with a = -0.5, in its order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+# Resample.c's filters: kernel and support
+FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
 
 
 @lru_cache(maxsize=None)
-def lanczos_taps(in_size: int, out_size: int):
-    """PIL's 22-bit fixed-point Lanczos coefficients (``precompute_coeffs``
+def resample_taps(in_size: int, out_size: int, filt: str = "lanczos"):
+    """PIL's 22-bit fixed-point coefficients of ``filt`` (``precompute_coeffs``
     + ``normalize_coeffs_8bpc``) as taps: (index, weight), each
     (out_size, K) with K the widest support, unused taps weight 0."""
+    kernel, support = FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = support * filterscale
     rows = []
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
-        k = _lanczos((np.arange(xmin, xmax) - center + 0.5) * (1.0 / filterscale))
+        k = kernel((np.arange(xmin, xmax) - center + 0.5) * (1.0 / filterscale))
         ww = 0.0
         for v in k.tolist():          # summed in order, as the C loop sums
             ww += v
@@ -220,20 +242,37 @@ def _pass(taps, x, axis):
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_lanczos(img: np.ndarray, size) -> np.ndarray:
-    """(H, W, C) uint8 -> (size[0], size[1], C) uint8, as PIL's
-    ``resize((size[1], size[0]), Image.LANCZOS)``; (N, H, W, C) resizes
-    each image."""
+def resize(img: np.ndarray, size, filt: str = "bicubic") -> np.ndarray:
+    """(H, W[, C]) uint8 -> (size[0], size[1][, C]) uint8, as PIL's
+    ``resize((size[1], size[0]), filt)`` of that image; (N, H, W, C)
+    resizes each image."""
+    if img.ndim == 2:
+        return resize(img[..., None], size, filt)[..., 0]
     one = img.ndim == 3
     out = img[None] if one else img
     oh, ow = size
     h, w = out.shape[1:3]
     if ow != w:
-        out = _pass(lanczos_taps(w, ow), out, axis=2)
+        out = _pass(resample_taps(w, ow, filt), out, axis=2)
     if oh != h:
-        out = _pass(lanczos_taps(h, oh), out, axis=1)
+        out = _pass(resample_taps(h, oh, filt), out, axis=1)
     out = np.ascontiguousarray(out)
     return out[0] if one else out
+
+
+def resize_lanczos(img: np.ndarray, size) -> np.ndarray:
+    """(H, W, C) uint8 -> (size[0], size[1], C) uint8, as PIL's
+    ``resize((size[1], size[0]), Image.LANCZOS)``; (N, H, W, C) resizes
+    each image."""
+    return resize(img, size, "lanczos")
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 RGB -> (...) uint8, PIL's ``convert("L")``:
+    (R*19595 + G*38470 + B*7471 + 0x8000) >> 16."""
+    rgb = img.astype(np.int32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
 
 
 def _frames(imgs, size):

@@ -210,6 +210,36 @@ def _normal_from_bits(bits):
     return _SQRT2 * erfinv(_uniform_from_bits(bits, _NORMAL_LO, 1.0))
 
 
+def draws(requests, device="cpu"):
+    """Several draws hashed in one threefry pass: each request is
+    ``("normal", key, shape)`` or ``("uniform", key, shape, lo, hi)``, and
+    the result the list of ``normal(key, shape)`` / ``uniform(key, shape, lo,
+    hi)``, bitwise, with the key words per element and the normals mapped
+    together: a few hundred launches fewer on the card per batch of draws."""
+    device = torch.device(device)
+    sizes = [math.prod(r[2]) for r in requests]
+    if sum(sizes) > 2**31:
+        raise ValueError("draws: more than 2**31 numbers in one pass")
+    words = np.concatenate([np.stack([np.full(n, r[1][0]), np.full(n, r[1][1]), np.arange(n)])
+                            for r, n in zip(requests, sizes)], axis=1)
+    k1, k2, lo = torch.from_numpy(words.astype(np.int64)).to(device).unbind(0)
+    b1, b2 = _threefry2x32_i32((k1, k2), torch.zeros_like(lo, dtype=torch.int32),
+                               lo.to(torch.int32))
+    parts = ((b1 ^ b2).to(torch.int64) & MASK).split(sizes)
+    normal_ids = [i for i, r in enumerate(requests) if r[0] == "normal"]
+    out = [None] * len(requests)
+    if normal_ids:
+        mapped = _normal_from_bits(torch.cat([parts[i] for i in normal_ids]))
+        for i, t in zip(normal_ids, mapped.split([sizes[i] for i in normal_ids])):
+            out[i] = t
+    for i, r in enumerate(requests):
+        if r[0] == "uniform":
+            out[i] = _uniform_from_bits(parts[i], r[3], r[4])
+        elif r[0] != "normal":
+            raise ValueError(f"draws: unknown kind {r[0]!r}")
+    return [t.reshape(tuple(r[2])) for t, r in zip(out, requests)]
+
+
 def normal(key, shape, device="cpu"):
     """``jax.random.normal(key, shape)`` (float32)."""
     return _normal_from_bits(random_bits(key, shape, device))

@@ -6,6 +6,7 @@ so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -693,3 +694,134 @@ def test_stage2_signal_save_and_resume_on_the_card(cuda, tmp_path, monkeypatch):
     assert len(resumed["history"]) == 1 and resumed["preempted"] is None
     _, meta = io.load(resumed["ckpt"])
     assert meta["step"] == 3 and "preempted" not in meta
+
+
+# ---------------------------------------------------------------------------
+# data preparation: the flow ops, PWC-lite and compute_flows on the card
+# ---------------------------------------------------------------------------
+
+FLOW_TOL = 1e-4   # the card against the CPU, relative to 1 + max|ref|
+
+
+def _flow_close(card, cpu, tol=FLOW_TOL):
+    card, cpu = card.detach().cpu(), cpu.detach()
+    err = float((card - cpu).abs().max())
+    assert err <= tol * (1 + float(cpu.abs().max())), err
+
+
+def _smooth_frames(b, size, seed):
+    from ipoke_tpu_torch.nn.core import resize_bilinear_align_corners
+
+    gen = torch.Generator().manual_seed(seed)
+    coarse = torch.randn(b, 8, 8, 3, generator=gen)
+    img1 = torch.tanh(resize_bilinear_align_corners(coarse, (size, size)) * 1.5)
+    return img1, torch.roll(img1, (1, -2), dims=(1, 2))
+
+
+@pytest.mark.gpu
+def test_flow_ops_on_the_card_match_the_cpu(cuda):
+    """Correlation (max_disp 4 and 2, stride 1 and 2), the warp and its
+    gradients (flows leaving the frame), Horn-Schunck's level and
+    estimate_flow on smooth frames."""
+    from ipoke_tpu_torch.ops import flow_ops
+
+    gen = torch.Generator().manual_seed(0)
+    f1, f2 = torch.randn(2, 16, 20, 8, generator=gen), torch.randn(2, 16, 20, 8, generator=gen)
+    for md, st in ((4, 1), (2, 1), (4, 2), (2, 2)):
+        _flow_close(flow_ops.correlation_cost_volume(f1.to(cuda), f2.to(cuda), md, st),
+                    flow_ops.correlation_cost_volume(f1, f2, md, st))
+    flow = torch.randn(2, 16, 20, 2, generator=gen) * 6
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        x, f = f1.to(dev).requires_grad_(), flow.to(dev).requires_grad_()
+        out = flow_ops.warp_bilinear(x, f)
+        (out * f2.to(dev)).sum().backward()
+        runs.append((out, x.grad, f.grad))
+    for a, b in zip(*runs):
+        _flow_close(a, b)
+    img1, img2 = _smooth_frames(2, 32, 1)
+    init = torch.randn(2, 32, 32, 2, generator=gen)
+    g1, g2 = img1[..., :1], img2[..., :1]
+    _flow_close(flow_ops.horn_schunck_level(g1.to(cuda), g2.to(cuda), init.to(cuda), n_iters=10),
+                flow_ops.horn_schunck_level(g1, g2, init, n_iters=10))
+    _flow_close(flow_ops.estimate_flow(img1.to(cuda), img2.to(cuda)), flow_ops.estimate_flow(img1, img2))
+
+
+@pytest.mark.gpu
+def test_pwc_flow_and_its_loss_on_the_card_match_the_cpu(cuda):
+    """pwc_flow on the same params and frames; a layered pair drawn on each
+    device from JAX's key, and the fit's loss and gradients on it."""
+    from ipoke_tpu_torch.ops import pwc
+    from ipoke_tpu_torch.utils import prng
+
+    img1, img2 = _smooth_frames(4, 64, 2)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = pwc.init_pwc(prng.prng_key(5), device=dev)
+        with torch.no_grad():
+            flow = pwc.pwc_flow(params, img1.to(dev), img2.to(dev))
+        pair = pwc.synthetic_pair_layered(prng.prng_key(7), 4, 64, 64, np.float32(9.0), device=dev)
+        for t in pwc.leaves(params):
+            t.requires_grad_(True)
+        loss = pwc.multiscale_epe_loss(params, *pair[:3])
+        runs.append((flow, *pair[:3], loss, *torch.autograd.grad(loss, pwc.leaves(params))))
+        occ = pair[3].cpu()
+    for a, b in zip(*runs):
+        _flow_close(a, b)
+    assert 0 < int(occ.sum()) < occ.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("estimator", ["hs", "pwc"])
+def test_compute_flows_on_the_card(cuda, tmp_path, monkeypatch, estimator):
+    """compute_flows on the card against the CPU: the same files, flows
+    within FLOW_TOL (PWC-lite on a pwc_lite.npz of its init)."""
+    from ipoke_tpu_torch.data import prepare
+    from ipoke_tpu_torch.ops import pwc
+    from ipoke_tpu_torch.utils import prng
+    from ipoke_tpu_torch.utils.video import save_image
+
+    monkeypatch.setenv("IPOKE_WEIGHTS", str(tmp_path / "weights"))
+    pwc.save_params(pwc.init_pwc(prng.prng_key(21)))
+    pwc.default_params.cache_clear()
+    img1, _ = _smooth_frames(1, 96, 3)
+    frames = [save_image(torch.roll(img1[0], (i, 2 * i), dims=(0, 1)).numpy()[8:72, 8:72],
+                         str(tmp_path / "v" / f"frame_{i:06d}.png")) for i in range(12)]
+    try:
+        card = prepare.compute_flows(frames, 3, str(tmp_path / "card"), estimator=estimator, device=cuda)
+        cpu = prepare.compute_flows(frames, 3, str(tmp_path / "cpu"), estimator=estimator, device="cpu")
+    finally:
+        pwc.default_params.cache_clear()
+    assert sorted(card) == sorted(cpu) == list(range(9))
+    for i in card:
+        a, b = np.load(card[i]), np.load(cpu[i])
+        assert a.shape == (64, 64, 2) and np.isfinite(a).all()
+        _flow_close(torch.from_numpy(a), torch.from_numpy(b))
+
+
+@pytest.mark.gpu
+def test_pwc_fit_on_the_card_is_reproducible(cuda):
+    """Two fits of 60 steps from one key on the card (deterministic
+    algorithms, ``pwc.reproducible``) give the same net bit for bit."""
+    from ipoke_tpu_torch.ops import pwc
+    from ipoke_tpu_torch.utils import prng
+
+    a, b = (pwc.train_synthetic(prng.prng_key(1234), steps=60, device=cuda) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(pwc.leaves(a), pwc.leaves(b)))
+
+
+@pytest.mark.gpu
+def test_cli_pwc_fit_on_the_card_passes_the_regime_guards(cuda, tmp_path, monkeypatch):
+    """prepare.fit_pwc_weights with no pwc_lite.npz: the fit (and any refit
+    its validation asks for) on the card, written to the npz; the kept net
+    passes the nine guards of the JAX package's tests/test_pwc.py on that
+    file's pairs, on the card (printed)."""
+    from ipoke_tpu_torch.data import prepare
+    from ipoke_tpu_torch.ops import pwc
+
+    monkeypatch.setenv("IPOKE_WEIGHTS", str(tmp_path))
+    path = prepare.fit_pwc_weights(cuda)
+    guards = pwc.regime_guards(pwc.load_params(path, cuda), cuda)
+    print("\n".join(f"{c}: {v:.4f} < {lim:.4f}" for c, v, lim, _ in guards))
+    failed = [g for g in guards if not g[1] < g[2]]
+    assert not failed, failed
