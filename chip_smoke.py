@@ -83,6 +83,22 @@ Phases, each fatal on failure:
              ipoke_tpu_torch.eval.interactive and python -m
              ipoke_tpu_torch.eval.gui in child processes on the eval
              phase's cut-depth top-k run (the GUI's start line, one poke).
+  8c. ingest reference-checkpoint ingestion at full width: a Lightning
+             checkpoint of iper_128 in the reference's key schema (4.34 GB:
+             the slice's flow, a first stage and both towers with both
+             halves from JAX's init at seed 1, their spectral-norm convs as
+             weight_orig/u/v), a seeded I3D in Unit3Dpy keys and pip-lpips
+             heads, in a temporary logs/ tree with best_k_models.yaml and
+             the saved config; python -m ipoke_tpu_torch.ckpt.quality_gate
+             in a child process (its own IPOKE_WEIGHTS) converts it, samples
+             the self-check (K2 200), converts both backbones and gates
+             run_fvd (16 videos at B=8, K2 400, the converted I3D); then the
+             written npz reloaded through the bridge here: the flow bitwise
+             the slice's, every spectral-norm kernel W_orig / (u^T W v) of
+             the exported tensors within 1e-6, a B=8 sample on fixed z (K2
+             200) within INGEST_TOL of the source params with those folded
+             weights.  Seconds per part, the checkpoint's GB, peak device
+             memory and host RSS printed.
   9. train   the training path: experiments/second_stage.train on iper_128
              at full width and depth from JAX's init at seed 0, synthetic
              data in JAX's training order with zero pokes (B=8, 10 frames of
@@ -158,7 +174,7 @@ Phases, each fatal on failure:
              Horn-Schunck's EPE on the extracted frames, which must beat no
              flow); then one batch of the tree through StaticDataModule and
              2 stage-2 steps through main at cut depth.  No kernel launches.
- 12. report  a JSON line of the prep phase, one of the data phase, one of the eval phase, one of
+ 12. report  a JSON line of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
@@ -168,6 +184,7 @@ limit printed beside it.
 """
 from __future__ import annotations
 
+import gc
 import http.client
 import importlib.util
 import io as pyio
@@ -197,7 +214,10 @@ import torch  # noqa: E402
 
 from ipoke_tpu_torch import registry  # noqa: E402
 from ipoke_tpu_torch.ckpt import io  # noqa: E402
-from ipoke_tpu_torch.ckpt.jax_bridge import bridge_gan_params, bridge_second_stage  # noqa: E402
+from ipoke_tpu_torch.ckpt import torch_import  # noqa: E402
+from ipoke_tpu_torch.ckpt.jax_bridge import (  # noqa: E402
+    bridge_components, bridge_gan_params, bridge_second_stage, unbridge_flow,
+    unbridge_second_stage, unbridge_wrapper)
 from ipoke_tpu_torch import main as port_main  # noqa: E402
 from ipoke_tpu_torch.data.datamodule import StaticDataModule  # noqa: E402
 from ipoke_tpu_torch.data.loader import device_prefetch, to_device  # noqa: E402
@@ -209,6 +229,8 @@ from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
 from ipoke_tpu_torch.flows import transformer  # noqa: E402
 from ipoke_tpu_torch.metrics import i3d  # noqa: E402
 from ipoke_tpu_torch.metrics.lpips import lpips_pretrained  # noqa: E402
+from ipoke_tpu_torch.models import encoders as encoders_mod  # noqa: E402
+from ipoke_tpu_torch.models import first_stage as first_stage_mod  # noqa: E402
 from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.models.discriminators import gradient_penalty, temp_disc_apply  # noqa: E402
 from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm  # noqa: E402
@@ -1640,6 +1662,298 @@ def _entry_points(card, cfg_path, poke):
 
 
 # ---------------------------------------------------------------------------
+# reference-checkpoint ingestion
+# ---------------------------------------------------------------------------
+
+INGEST_SAMPLES_FVD = 16    # the gate's run_fvd: 16 videos in batches of BATCH
+INGEST_TIMEOUT_S = 600     # the quality-gate child, start-up included
+# the converted model's video against the source params with the weights
+# folded from the exported tensors, relative to 1 + max|ref|
+INGEST_TOL = 2e-4
+# a spectral-norm conv stored as a ConvTranspose2d: sigma along dim 1
+_SN_TRANSPOSED = re.compile(r"(^|\.)(decoder|gen)\.blocks\.\d+\.(conv1|res_conv)\.conv$")
+
+
+def ingest_config(entry, spec):
+    """The saved config of a released model (logs/second_stage/config/
+    <model>/config.yaml): ``spec``'s architecture written out, the first
+    stage explicitly, the synthetic dataset (no meta tree)."""
+    fs = spec.first_stage
+    config = train_config(entry)
+    config["general"] = {"experiment": "second_stage", "model_name": entry.name}
+    config["first_stage"] = {"spec": {
+        "z_dim": fs.z_dim, "ENC_M_channels": list(fs.enc_channels),
+        "dec_channels": list(fs.dec_channels), "n_gru_layers": fs.n_gru_layers,
+        "min_spatial_size": fs.min_spatial_size, "motion_bias": fs.motion_bias,
+        "full_seq": fs.full_sequence}}
+    del config["training"]
+    return config
+
+
+def _i3d_state_dict():
+    """The port's seeded I3D filters as the reference's i3d_kinetics_rgb.pth
+    holds a network: Unit3Dpy keys, (O, I, D, H, W) kernels, batch norms of
+    unit gain (running variance 1 - 1e-3 against TF's eps 1e-3), the logits
+    with a bias and no batch norm."""
+    host, _ = i3d.load_params()
+    sd = {}
+    for name, p in host.items():
+        w = torch.from_numpy(np.ascontiguousarray(np.asarray(p["w"]).transpose(4, 3, 0, 1, 2)))
+        if name == "logits":
+            sd["conv3d_0c_1x1.conv3d.weight"] = w
+            sd["conv3d_0c_1x1.conv3d.bias"] = torch.from_numpy(np.asarray(p["b"]))
+            continue
+        if "/" in name:   # Mixed_3b/b1a -> mixed_3b.branch_1.0; b3 -> branch_3.1
+            blk, unit = name.split("/")
+            sub = {"a": ".0", "b": ".1", "": ".1" if unit[1] == "3" else ""}[unit[2:]]
+            torch_name = f"mixed_{blk.split('_', 1)[1]}.branch_{unit[1]}{sub}"
+        else:
+            torch_name = name.lower()
+        c = w.shape[0]
+        sd[f"{torch_name}.conv3d.weight"] = w
+        sd[f"{torch_name}.batch3d.weight"] = torch.ones(c)
+        sd[f"{torch_name}.batch3d.bias"] = torch.from_numpy(np.asarray(p["b"]))
+        sd[f"{torch_name}.batch3d.running_mean"] = torch.zeros(c)
+        sd[f"{torch_name}.batch3d.running_var"] = torch.full((c,), 1 - 1e-3)
+    return sd
+
+
+def _sn_folds(sd):
+    """{prefix: W_orig / (u^T W v)} of every conv that ``sd`` stores in
+    torch's spectral-norm form, in float64 from the exported tensors."""
+    out = {}
+    for key in sd:
+        if key.endswith(".weight_orig"):
+            prefix = key[:-len(".weight_orig")]
+            w = np.asarray(sd[key], np.float64)
+            dim = 1 if _SN_TRANSPOSED.search(prefix) else 0
+            w_mat = np.moveaxis(w, dim, 0).reshape(w.shape[dim], -1)
+            sigma = (np.asarray(sd[f"{prefix}.weight_u"], np.float64)
+                     @ (w_mat @ np.asarray(sd[f"{prefix}.weight_v"], np.float64)))
+            out[prefix] = w / sigma
+    return out
+
+
+def _rss_gb(pid="self"):
+    """The resident set (VmRSS) of a process in GB; None where /proc does
+    not say."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            kb = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    except (OSError, StopIteration, ValueError):
+        return None
+    return kb * 1024 / 1e9
+
+
+def _gb(x):
+    return "not measured" if x is None else f"{x:.2f} GB"
+
+
+class _PeakRss:
+    """The largest resident set of a process, sampled every 0.2 s by a
+    thread between ``start`` and ``stop`` (neither rusage's maxrss, which
+    holds the parent's resident set at a fork, nor VmHWM, which the card's
+    machine lacks, gives one process's peak in one phase)."""
+
+    def __init__(self, pid="self"):
+        self.pid, self.peak = pid, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            rss = _rss_gb(self.pid)
+            if rss is not None:
+                self.peak = max(self.peak or 0.0, rss)
+            self._stop.wait(0.2)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        return self.peak
+
+
+def phase_ingest(device, card, entry, params, tmp):
+    """Reference-checkpoint ingestion at full width: a Lightning checkpoint
+    of ``entry`` in the reference's key schema (the smoke's flow, a first
+    stage and both towers with both halves from the port's init at seed 1,
+    their spectral-norm convs as torch stores them), a seeded I3D and
+    pip-lpips heads beside it, through ``python -m
+    ipoke_tpu_torch.ckpt.quality_gate`` in a child process (conversion, its
+    self-check sample on K2, the backbones, the gate's run_fvd on K2 with the
+    converted I3D).  Then here: the written npz through the bridge, the flow
+    bitwise the smoke's, every spectral-norm kernel W_orig / (u^T W v) of the
+    exported tensors, and a B=8 forward_sample on fixed z against the source
+    params with those folded weights."""
+    spec = registry.build_specs(entry)
+    config = ingest_config(entry, spec)
+    if experiment.build_spec_from_config(config) != spec:
+        raise SystemExit("ingest: the saved config does not give the registry's spec")
+    root = Path(tmp) / "datapath"
+    ck_dir = root / "logs" / "second_stage" / "ckpt" / entry.name / "0"
+    ck_dir.mkdir(parents=True)
+    _write_config(str(root / "logs" / "second_stage" / "config" / entry.name / "config.yaml"), config)
+    out, seconds = {}, {}
+    parent_rss = _PeakRss().start()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    ks = prng.split(prng.prng_key(1), 3)
+    rest = {"first_stage": first_stage_mod.init(ks[0], spec.first_stage, device, spectral_u=True),
+            "poke_embedder": encoders_mod.init_wrapper(ks[1], spec.poke_embedder, device, train=True),
+            "conditioner": encoders_mod.init_wrapper(ks[2], spec.conditioner, device, train=True)}
+    tree = {"flow": unbridge_flow(params["flow"]),
+            "first_stage": unbridge_second_stage({"first_stage": rest["first_stage"]},
+                                                 spec)["first_stage"],
+            "poke_embedder": unbridge_wrapper(rest["poke_embedder"]),
+            "conditioner": unbridge_wrapper(rest["conditioner"])}
+    del rest
+    sd = torch_import.export_second_stage(tree, spec)
+    del tree
+    state_dict = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    sd_rest = {k: v for k, v in sd.items() if not k.startswith("flow.")}
+    del sd
+    seconds["export"] = time.perf_counter() - t0
+    n_sn = sum(k.endswith(".weight_orig") for k in sd_rest)
+    ck_path = ck_dir / "epoch=17-FVD-val=74.530.ckpt"
+    t0 = time.perf_counter()
+    torch.save({"epoch": 17, "global_step": 100000, "pytorch-lightning_version": "1.1.7",
+                "state_dict": state_dict, "optimizer_states": [], "lr_schedulers": [],
+                "hyper_parameters": {"model_name": entry.name, "num_steps": list(entry.num_steps)}},
+               ck_path)
+    seconds["torch_save"] = time.perf_counter() - t0
+    n_keys = len(state_dict)
+    del state_dict   # the parent's copy goes before the child loads its own
+    gc.collect()
+    out["ckpt_gb"] = ck_path.stat().st_size / 1e9
+    _write_config(str(ck_dir / "best_k_models.yaml"), {str(ck_path): 74.53})
+    src = root / "weights_src"
+    src.mkdir()
+    torch.save(_i3d_state_dict(), src / "i3d_kinetics_rgb.pth")
+    torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=torch.Generator().manual_seed(i))
+                for i, c in enumerate((64, 128, 256, 512, 512))}, src / "lpips_vgg_lins.pth")
+    log(f"ingest: {entry.name} as a Lightning checkpoint: {n_keys} keys ({n_sn} spectral-norm "
+        f"convs as weight_orig/u/v), {out['ckpt_gb']:.3f} GB; export {seconds['export']:.1f} s, "
+        f"torch.save {seconds['torch_save']:.1f} s")
+
+    report_path = Path(tmp) / "quality_gate_report.json"
+    cmd = [sys.executable, "-m", "ipoke_tpu_torch.ckpt.quality_gate", "--datapath", str(root),
+           "--models", entry.name, "--n-samples-fvd", str(INGEST_SAMPLES_FVD), "--batch", str(BATCH),
+           "--published", json.dumps({entry.name: 1e9}), "--allow-blocked-gates",
+           "--report", str(report_path)] + (["--device", "cpu"] if device.type == "cpu" else [])
+    env = dict(os.environ, IPOKE_WEIGHTS=str(Path(tmp) / "weights"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    child_rss = _PeakRss(proc.pid).start()
+    try:
+        stdout, stderr = proc.communicate(timeout=INGEST_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        child_rss = child_rss.stop()
+    rc = proc.returncode
+    seconds["child"] = time.perf_counter() - t0
+    if rc != 0 or not report_path.exists():
+        raise SystemExit(f"ingest: the quality gate exited {rc}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    (conv,), (gate,) = report["models"], report["gates"]
+    units = 4 * sum(spec.flow.num_steps)
+    want_k2 = {"self_check": units, "gate": units * INGEST_SAMPLES_FVD // BATCH}
+    launches = {"self_check": conv.get("launches"), "gate": gate.get("launches")}
+    backbones = {k: report["backbones"][k]["status"]
+                 for k in ("i3d_kinetics_rgb.npz", "lpips_vgg_lins.npz")}
+    for part, s in conv.get("seconds", {}).items():
+        seconds[f"child_{part}"] = s
+    seconds["child_backbones"] = report.get("backbones_seconds")
+    seconds.update({f"child_gate_{k}": v for k, v in gate["seconds"].items()})
+    log(f"ingest [{card}]: python -m ipoke_tpu_torch.ckpt.quality_gate: rc {rc} in "
+        f"{seconds['child']:.1f} s; {conv['status']}, flow round trip {conv['flow_roundtrip_max_err']}, "
+        f"sample finite {conv['sample_finite']}; backbones {backbones}; gate {gate['gate']} "
+        f"({gate['fvd_key']} {gate['fvd']:.6g} of {gate['n_videos']} videos, I3D pretrained "
+        f"{gate['i3d_pretrained']}); launches {launches}; child seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items() if k.startswith("child_")))
+    if (conv["status"] != "converted" or not conv["flow_roundtrip_ok"] or not conv["sample_finite"]
+            or set(backbones.values()) != {"converted"} or gate["i3d_pretrained"] is not True
+            or gate["gate"] != "pass" or "gate_note" not in gate or gate["n_videos"] != INGEST_SAMPLES_FVD
+            or not np.isfinite(gate["fvd"])):
+        raise SystemExit(f"ingest: the gate's report is off: {json.dumps(report, default=str)[-3000:]}")
+    if device.type == "cuda" and launches != {p: {"mcf_inverse": 0, "macow_unit_inverse": n}
+                                               for p, n in want_k2.items()}:
+        raise SystemExit(f"ingest: the child's launches {launches}, not K2 {want_k2} and K1 0")
+
+    # the written npz, as every entry point reads it
+    t0 = time.perf_counter()
+    conv_tree, meta = io.load(conv["out"])
+    converted = bridge_second_stage(conv_tree, spec, device)
+    _sync(device)
+    seconds["reload"] = time.perf_counter() - t0
+    flow_a, flow_b = _flat(converted["flow"]), _flat(params["flow"])
+    if set(flow_a) != set(flow_b) or not all(torch.equal(flow_a[k], flow_b[k]) for k in flow_a):
+        raise SystemExit("ingest: the converted flow is not the smoke's flow bitwise")
+    del flow_a, flow_b
+    folds = _sn_folds(sd_rest)
+    plain = torch_import.export_second_stage({k: conv_tree[k] for k in (
+        "first_stage", "poke_embedder", "conditioner")}, spec, spectral="weight")
+    del conv_tree
+    sn_err = max(float(np.max(np.abs(plain[f"{p}.weight"] - w)) / np.max(np.abs(w)))
+                 for p, w in folds.items())
+    if len(folds) != n_sn or sn_err > 1e-6:
+        raise SystemExit(f"ingest: {len(folds)} spectral-norm kernels, worst relative error {sn_err}")
+    # the source params with the folded weights: the exported plain form
+    for p, w in folds.items():
+        sd_rest[f"{p}.weight"] = w.astype(np.float32)
+        for suffix in (".weight_orig", ".weight_u", ".weight_v"):
+            del sd_rest[p + suffix]
+    def sub(pre):
+        return {k[len(pre):]: v for k, v in sd_rest.items() if k.startswith(pre)}
+
+    source = dict(bridge_components({
+        "first_stage": torch_import.convert_first_stage(sub("first_stage_model."), spec.first_stage),
+        "poke_embedder": torch_import.convert_wrapper(sub("poke_embedder."), spec.poke_embedder),
+        "conditioner": torch_import.convert_wrapper(sub("conditioner."), spec.conditioner)},
+        device=device), flow=params["flow"])
+    batch = to_device(next(iter(StaticDataModule(config["data"]).loader("test"))), device,
+                      keys=("images", "poke"))
+    z = prng.normal(prng.prng_key(5), transformer.reverse_input_shape(
+        spec.flow, BATCH, spec.latent_size, spec.flow_in_channels), device)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        video = second_stage.forward_sample(converted, spec, batch, z=z)
+        _sync(device)
+        seconds["sample"] = time.perf_counter() - t0
+        k1_n, k2_n = _counts()
+        ref = second_stage.forward_sample(source, spec, batch, z=z)
+    err = float((video - ref).abs().max() / (1 + ref.abs().max()))
+    out["launches"] = {"mcf_inverse": k1_n, "macow_unit_inverse": k2_n}
+    out["child_launches"] = launches
+    seconds["phase"] = time.perf_counter() - t_phase
+    out.update(seconds=seconds, video_max_rel_err=err, sn_max_rel_err=sn_err, n_sn=n_sn,
+               gate=gate["gate"], fvd=gate["fvd"], fvd_key=gate["fvd_key"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0,
+               rss_gb=parent_rss.stop(), child_rss_gb=child_rss)
+    log(f"ingest [{card}]: the npz reloaded and bridged in {seconds['reload']:.1f} s, flow bitwise; "
+        f"{n_sn} spectral-norm kernels within {sn_err:.3g} of W_orig / (u^T W v); a B={BATCH} sample "
+        f"on the converted params in {seconds['sample'] * 1e3:.1f} ms (K2 {k2_n}, K1 {k1_n}) "
+        f"against the folded source {err:.3g} (tolerance {INGEST_TOL}); peak memory "
+        f"{out['peak_gib']:.2f} GiB, peak host RSS in the phase {_gb(out['rss_gb'])} (the child's "
+        f"{_gb(out['child_rss_gb'])}); "
+        f"the phase {seconds['phase']:.1f} s")
+    if not torch.isfinite(video).all() or err > INGEST_TOL:
+        raise SystemExit(f"ingest: the converted model's video is {err} off the source's")
+    if device.type == "cuda" and (k2_n != units or k1_n != 0):
+        raise SystemExit(f"ingest: the parent's sample launched K2 {k2_n} and K1 {k1_n} times")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the data path on a prepared tree, and the conditioning towers' trainers
 # ---------------------------------------------------------------------------
 
@@ -2342,6 +2656,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         ev, cut = phase_eval(device, card, entry, spec, params, tmp)
         ev2 = phase_eval2(device, card, entry, spec, params, tmp, cut)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
+        ingest = phase_ingest(device, card, entry, params, tmp)
     del params
     train = phase_train(device, card, entry)
     torch.cuda.empty_cache()   # the child of the resume phase needs the train step's memory
@@ -2376,6 +2692,9 @@ def main():
              image_ae_step_launches=data["img_encoder"]["launches"][name],
              poke_ae_step_launches=data["poke_encoder"]["launches"][name],
              prep_launches=prep["launches"][name],
+             ingest_self_check_launches=ingest["child_launches"]["self_check"][name],
+             ingest_gate_launches=ingest["child_launches"]["gate"][name],
+             ingest_reload_sample_launches=ingest["launches"][name],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -2387,6 +2706,7 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    print(json.dumps({"ingest": ingest}, default=float), flush=True)
     print(json.dumps({"prep": prep}, default=float), flush=True)
     print(json.dumps({"data": data}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)

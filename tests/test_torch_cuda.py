@@ -825,3 +825,59 @@ def test_cli_pwc_fit_on_the_card_passes_the_regime_guards(cuda, tmp_path, monkey
     print("\n".join(f"{c}: {v:.4f} < {lim:.4f}" for c, v, lim, _ in guards))
     failed = [g for g in guards if not g[1] < g[2]]
     assert not failed, failed
+
+
+@pytest.mark.gpu
+def test_converted_checkpoint_samples_on_the_card(cuda):
+    """A tiny reference-shaped checkpoint (spectral-norm convs in torch's
+    weight_orig form) through ``torch_import.to_port`` onto the card, sampled
+    on 'cuda_unit' (K2: 4 launches per MaCowStep) within TOL of the same
+    params on 'scan' (plain)."""
+    from dataclasses import replace
+
+    from torch_ckpt_fixture import reference_tree
+
+    from ipoke_tpu_torch.ckpt import torch_import as ti
+    from ipoke_tpu_torch.experiments.second_stage import build_spec_from_config
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.utils import prng
+
+    config = {
+        "first_stage": {"spec": {"z_dim": 16, "ENC_M_channels": [16] * 4, "dec_channels": [16] * 4,
+                                 "n_gru_layers": 2, "min_spatial_size": 8}},
+        "poke_embedder": {"spec": {"nf_max": 16}}, "conditioner": {"spec": {"nf_max": 16}},
+        "data": {"spatial_size": [64, 64], "max_frames": 3},
+        "architecture": {"flow_mid_channels_factor": 2, "num_steps": [1, 1]},
+    }
+    spec = build_spec_from_config(config, mcf_backend="cuda_unit")
+    params = ti.to_port(ti.export_second_stage(reference_tree(spec, seed=5), spec), spec, cuda)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"images": (torch.rand(2, 3, 64, 64, 3, generator=gen) * 2 - 1).to(cuda),
+             "poke": (torch.randn(2, 64, 64, 2, generator=gen) * 0.5).to(cuda)}
+    n0 = k2.macow_unit_inverse.launches
+    with torch.no_grad():
+        card = second_stage.forward_sample(params, spec, batch, prng.prng_key(3))
+        assert k2.macow_unit_inverse.launches - n0 == 4 * sum(spec.flow.num_steps)
+        plain = second_stage.forward_sample(
+            params, replace(spec, flow=replace(spec.flow, mcf_backend="scan")), batch,
+            prng.prng_key(3))
+    assert torch.isfinite(card).all()
+    err = float((card - plain).abs().max() / (1 + plain.abs().max()))
+    assert err <= TOL, err
+
+
+@pytest.mark.gpu
+def test_fid_features_on_the_card_match_the_cpu(cuda):
+    """InceptionV3's pool3 features (seeded filters) of 64^2 images, resized
+    to 299^2 inside, on the card against the CPU (oneDNN off)."""
+    from ipoke_tpu_torch.metrics import fid
+
+    gen = torch.Generator().manual_seed(1)
+    images = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+    with torch.no_grad():
+        card = fid.pool3_features(images.to(cuda)).cpu()
+        with torch.backends.mkldnn.flags(enabled=False):
+            cpu = fid.pool3_features(images)
+    assert card.shape == (2, 2048) and torch.isfinite(card).all()
+    err = float((card - cpu).abs().max() / (1 + cpu.abs().max()))
+    assert err <= 1e-4, err

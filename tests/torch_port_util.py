@@ -159,3 +159,20 @@ def random_like(shapes, seed):
         return x.astype(np.float32)
 
     return walk(shapes)
+
+
+def assert_trees_equal(a, b, path=""):
+    """Same keys, same list lengths, every leaf of the same dtype and bitwise
+    equal."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_trees_equal(x, y, f"{path}/{i}")
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        assert x.dtype == y.dtype and x.shape == y.shape, (path, x.dtype, y.dtype, x.shape, y.shape)
+        assert np.array_equal(x, y), path
