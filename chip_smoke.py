@@ -44,10 +44,13 @@ Phases, each fatal on failure:
              trained above, timed beside the slice's calls.
   7. artifact serving artifacts exported on the card (torch.export, K2 as
              the custom op ipoke::macow_unit_inverse): the flow sampler at
-             ARTIFACT_FLOW_BUCKETS with flow output gains CROSS_GAIN, loaded
-             and held to the live forward_sample on the same z within
-             CUDA_BATCH_TOL (200 K2 launches per call); the direct student of
-             the distill phase with the u8 wire at buckets 1, 2, 4, 8,
+             ARTIFACT_FLOW_BUCKETS with flow output gains CROSS_GAIN, at
+             iper_128's width and all 15 levels (their splits and priors) on
+             a cut depth (STEPS_PER_LEVEL: each level's first
+             MaCowStep), loaded and held to the live forward_sample of the
+             same cut flow on the same z within CUDA_BATCH_TOL (60 K2
+             launches per call); the direct student of
+             the distill phase with the u8 wire at buckets 1 and 8,
              served over HTTP by the port's server (SERVE_REQUESTS npy_u8
              requests, 2 processes x 8 connections).  Export seconds per
              bucket and file sizes are printed.
@@ -84,23 +87,45 @@ Phases, each fatal on failure:
              ipoke_tpu_torch.eval.gui in child processes on the eval
              phase's cut-depth top-k run (the GUI's start line, one poke).
   8c. ingest reference-checkpoint ingestion at full width: a Lightning
-             checkpoint of iper_128 in the reference's key schema (4.34 GB:
-             the slice's flow, a first stage and both towers with both
+             checkpoint of iper_128 in the reference's key schema (1.5 GB:
+             the slice's flow on STEPS_PER_LEVEL MaCowSteps per level, all
+             15 levels, a first stage and both towers with both
              halves from JAX's init at seed 1, their spectral-norm convs as
              weight_orig/u/v), a seeded I3D in Unit3Dpy keys and pip-lpips
              heads, in a temporary logs/ tree with best_k_models.yaml and
              the saved config; python -m ipoke_tpu_torch.ckpt.quality_gate
              in a child process (its own IPOKE_WEIGHTS) converts it, samples
-             the self-check (K2 200), converts both backbones and gates
-             run_fvd (16 videos at B=8, K2 400, the converted I3D); then the
+             the self-check (K2 60), converts both backbones and gates
+             run_fvd (16 videos at B=8, K2 120, the converted I3D); then the
              written npz reloaded through the bridge here: the flow bitwise
              the slice's, every spectral-norm kernel W_orig / (u^T W v) of
              the exported tensors within 1e-6, a B=8 sample on fixed z (K2
-             200) within INGEST_TOL of the source params with those folded
+             60) within INGEST_TOL of the source params with those folded
              weights.  Seconds per part, the checkpoint's GB, peak device
              memory and host RSS printed.
-  9. train   the training path: experiments/second_stage.train on iper_128
-             at full width and depth from JAX's init at seed 0, synthetic
+  8d. parallel the parallel slice at iper_128 full width, after the
+             parent freed its model: python -m ipoke_tpu_torch.parallel.dryrun's
+             legs (parallel/dryrun.run) in PARALLEL_NPROC spawned ranks, all on
+             this card over gloo (NCCL refuses two ranks on one card; with two
+             or more cards, again under NCCL, one card per rank): the probe
+             of all_reduce / all_gather / broadcast on CUDA tensors; the
+             stage-2 step (the flow on STEPS_PER_LEVEL MaCowSteps per level,
+             all 15 levels) at a global B=8 (4 rows per rank) on a data x model
+             mesh of 2 x 1 with ZeRO-1 moments and on 1 x 2 (the priors' NICE
+             convs tensor parallel), two steps each; the motion encoder on
+             the shortest video check_plan admits on 2 seq shards (T=64 at
+             128^2); the step under FSDP; forward_sample at full depth and a
+             global B=8 with z fixed and z drawn.  Each rank holds its params, their change
+             over the two steps, their first moments and the metrics against
+             its own one-process run within dryrun.TRAIN_TOLS, mu against the
+             dense encoder, its videos against the one-process videos within
+             CUDA_BATCH_TOL (the ranks raise otherwise);
+             launch counts read in the ranks around each driven call (K2 200
+             per rank per sampling call, K1 and K2 0 in the train steps);
+             step ms and peak memory per rank (FSDP beside data parallel).
+ 9. train   the training path: experiments/second_stage.train on iper_128
+             at full width and all 15 levels on STEPS_PER_LEVEL
+             MaCowSteps each from JAX's init at seed 0, synthetic
              data in JAX's training order with zero pokes (B=8, 10 frames of
              128^2), torch-Adam (lr 1e-3 after 2
              warm-up steps, weight decay 1e-5), one warm-up step and 5 timed
@@ -110,11 +135,11 @@ Phases, each fatal on failure:
              bitwise as initialised, last.npz (the whole train state, in a
              temporary directory) reloads to the trained params bitwise, and
              reverse(forward(x)) on the trained flow returns the motion latent
-             within TRAIN_TOL with 200 K2 launches.
-  9b. resume resumption at full width and depth (B=8, the train phase's
-             config): stage-2 training through python -m ipoke_tpu_torch.main
+             within TRAIN_TOL with 4 K2 launches per MaCowStep (60).
+  9b. resume resumption at full width (B=8, the train phase's config and
+             cut depth): stage-2 training through python -m ipoke_tpu_torch.main
              in a child process, sent SIGTERM once its log shows step 2; it
-             must exit 0 with last.npz (~12.7 GB) saved after the step in
+             must exit 0 with last.npz (~4.3 GB) saved after the step in
              flight, marked preempted.  Then main --resume for 2 steps in
              this process: the restored train state (params, Adam moments,
              counts) equal to that last.npz bitwise, the first step at the
@@ -174,7 +199,7 @@ Phases, each fatal on failure:
              Horn-Schunck's EPE on the extracted frames, which must beat no
              flow); then one batch of the tree through StaticDataModule and
              2 stage-2 steps through main at cut depth.  No kernel launches.
- 12. report  a JSON line of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
+ 12. report  a JSON line of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
@@ -237,6 +262,7 @@ from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
+from ipoke_tpu_torch.parallel import dryrun  # noqa: E402
 from ipoke_tpu_torch.serve import artifact, loadtest  # noqa: E402
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL, BatcherConfig, SampleBatcher  # noqa: E402
 from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
@@ -263,7 +289,7 @@ CROSS_GAIN = 0.02
 CROSS_TOL = 2e-3
 SERVE_REQUESTS, SERVE_PROCS, SERVE_CONNS = 48, 2, 8
 TRAIN_STEPS = 5            # timed train steps, after one warm-up step
-# reverse(forward(x)) on the trained flow against x, 50 MaCowSteps deep in f32
+# reverse(forward(x)) on the trained flow against x, in f32
 TRAIN_TOL = 1e-3
 DISTILL_DIRECT_STEPS, DISTILL_FLOW_STEPS = 10, 3
 DISTILL_LR = 1e-4          # configs/distill.yaml's distill.lr
@@ -271,7 +297,7 @@ STUDENT_CALLS = 3          # timed forward_sample_student calls, after one warm-
 # bucket 8 only: exporting the flagship flow graph is the slowest step of the
 # run (PERF.md)
 ARTIFACT_FLOW_BUCKETS = (8,)
-ARTIFACT_STUDENT_BUCKETS = (1, 2, 4, 8)
+ARTIFACT_STUDENT_BUCKETS = (1, 8)   # the smallest and the largest: each export ~20-26 s
 STAGE1_STEPS = 4           # timed stage-1 GAN steps, after one warm-up step
 STAGE1_GP_TOL = 2e-4       # the gradient penalty on the card against the CPU's
 # I3D features of the sampled videos on the card against the port's CPU I3D
@@ -295,6 +321,13 @@ EVAL2_TESTING = {"seed": 42, "n_samples_metrics": 8, "n_samples_per_data_point":
                  "n_control_sensitivity_pokes": 2, "n_samples_vis": 1}
 GUI_POKES = 3              # steady GUI pokes timed after the first
 ENTRY_TIMEOUT_S = 240      # the entry points' child processes, start-up included
+# the cut depth of the artifact phase's flow sampler, the ingested checkpoint, the
+# parallel phase's train legs and the train and resume phases: iper_128's width and
+# all 15 levels with the first MaCowStep of each (at 50 MaCowSteps their exports,
+# checkpoints and gloo transfers took ~450 s of the run, PERF.md)
+STEPS_PER_LEVEL = 1
+# the parallel phase: ranks on the card, and how long the spawned dry run may take
+PARALLEL_NPROC, PARALLEL_TIMEOUT_S = 2, 600
 # resumption at full width: the child's epoch (long enough that it never ends
 # in the run), the logged step that triggers SIGTERM, the resumed steps, and
 # how long the child may take
@@ -717,21 +750,37 @@ def phase_distill(device, card, spec, params, slice_s, b=BATCH, direct_steps=DIS
     return out, (sp, ds)
 
 
+def cut_spec(spec, k):
+    """``spec`` with at most ``k`` MaCowSteps per level, every level kept."""
+    return replace(spec, flow=replace(spec.flow, num_steps=tuple(min(k, n) for n in
+                                                                 spec.flow.num_steps)))
+
+
+def cut_flow(flow, k):
+    """Flow params with each level's first ``k`` MaCowSteps (``cut_spec``'s)."""
+    return dict(flow, levels=[dict(level, steps=level["steps"][:k]) for level in flow["levels"]])
+
+
 def phase_artifact(device, card, spec, params, student, tmp, flow_buckets=ARTIFACT_FLOW_BUCKETS,
                    student_buckets=ARTIFACT_STUDENT_BUCKETS, b=BATCH,
                    n_requests=SERVE_REQUESTS, procs=SERVE_PROCS, conns=SERVE_CONNS):
     """Serving artifacts exported on ``device`` into ``tmp``: the flow
-    sampler (flow output gains CROSS_GAIN) at ``flow_buckets``, loaded and
-    run at bucket ``b`` against the live forward_sample; then the direct
+    sampler (flow output gains CROSS_GAIN) of ``spec``'s width and levels
+    on STEPS_PER_LEVEL MaCowSteps per level at
+    ``flow_buckets``, loaded and run at
+    bucket ``b`` against the live forward_sample; then the direct
     student ``student`` = (params, spec) with the u8 wire at
     ``student_buckets``, served over HTTP.  The launch counters are zeroed just before each run
     and read just after it."""
-    units = 4 * sum(spec.flow.num_steps)
-    gparams = dict(params, flow=synth.set_flow_output_gains(params["flow"], CROSS_GAIN))
+    cut = cut_spec(spec, STEPS_PER_LEVEL)
+    units = 4 * sum(cut.flow.num_steps)
+    gparams = dict(params, flow=synth.set_flow_output_gains(
+        cut_flow(params["flow"], STEPS_PER_LEVEL), CROSS_GAIN))
 
     def export(name, **kw):
         t0 = time.perf_counter()
-        artifact.export_sampler(gparams if name == "flow" else params, spec, tmp / name, **kw)
+        artifact.export_sampler(gparams if name == "flow" else params,
+                                cut if name == "flow" else spec, tmp / name, **kw)
         total = time.perf_counter() - t0
         m = json.loads((tmp / name / "manifest.json").read_text())
         sizes = {f.name: f.stat().st_size for f in sorted((tmp / name).iterdir())}
@@ -765,7 +814,7 @@ def phase_artifact(device, card, spec, params, student, tmp, flow_buckets=ARTIFA
     for _ in range(2):
         _sync(device)
         t0 = time.perf_counter()
-        live = second_stage.forward_sample(gparams, spec, batch, length=art.length,
+        live = second_stage.forward_sample(gparams, cut, batch, length=art.length,
                                            add_first_frame=True, z=z)[0]
         _sync(device)
         live_ms.append((time.perf_counter() - t0) * 1e3)
@@ -811,6 +860,61 @@ def phase_artifact(device, card, spec, params, student, tmp, flow_buckets=ARTIFA
     return out
 
 
+def _parallel_run(card, backend, spec):
+    """One spawned dry run at full width under ``backend`` (its ranks hold
+    every leg against its one-process run, or the run raises); the launch
+    counts checked, and the ranks' figures printed."""
+    t0 = time.perf_counter()
+    reports = dryrun.run(PARALLEL_NPROC, "cuda", backend, full=True, timeout=PARALLEL_TIMEOUT_S,
+                         steps_per_level=STEPS_PER_LEVEL)
+    wall = time.perf_counter() - t0
+    units = 4 * sum(spec.flow.num_steps)
+    legs = {"ok": [r["ok"] for r in reports], "fsdp": [r["fsdp"] for r in reports]}
+    for r in reports:
+        log(f"parallel [{card}]: rank {r['rank']} on {r['device']} ({r['backend']}): probe "
+            + ", ".join(f"{k} {v if isinstance(v, str) else f'{v:.1f} ms'}"
+                        for k, v in r["probe"].items()))
+        for leg in r["ok"] + [r["fsdp"]]:
+            log(f"parallel [{card}]: rank {r['rank']} {'fsdp' if leg['fsdp'] else 'train'} mesh "
+                f"{leg['mesh']}: step ms {', '.join(f'{x:.1f}' for x in leg['step_ms'])}; peak "
+                f"{leg['peak_gib']:.2f} GiB; against one process "
+                + ", ".join(f"{k} {v:.3g} (tolerance {dryrun.TRAIN_TOLS['cuda'][k]})"
+                            for k, v in leg["errs"].items())
+                + f"; K1/K2 launches in the steps {leg['launches']}")
+        sp, sa = r["seqpar"], r["sample"]
+        log(f"parallel [{card}]: rank {r['rank']} seqpar {sp['mesh']} T={sp['t']}: "
+            f"{sp['ms']:.1f} ms, |mu - dense| {sp['max_abs_err']:.3g}; sample {sa['mesh']}: "
+            + "; ".join(f"{k} {sa[k]['ms']:.1f} ms, |video - one process| "
+                        f"{sa[k]['max_abs_err']:.3g}, launches {sa[k]['launches']}"
+                        for k in ("z_fixed", "z_drawn")))
+    bad = [leg for r in reports for leg in r["ok"] + [r["fsdp"]]
+           if leg["launches"] != {"mcf_inverse": 0, "macow_unit_inverse": 0}]
+    bad += [r["sample"] for r in reports for k in ("z_fixed", "z_drawn")
+            if r["sample"][k]["launches"] != {"mcf_inverse": 0, "macow_unit_inverse": units}]
+    if bad or any(r["backend"] != backend for r in reports):
+        raise SystemExit(f"parallel: a leg launched otherwise than it should: {bad}")
+    log(f"parallel [{card}]: {PARALLEL_NPROC} ranks under {backend}: every leg held, "
+        f"{wall:.1f} s")
+    return {"backend": backend, "wall_s": wall, "reports": reports, "legs": legs}
+
+
+def phase_parallel(card, spec):
+    """The parallel slice at full width (``parallel/dryrun``): PARALLEL_NPROC
+    ranks on this card over gloo and, with as many cards, one rank per card
+    over NCCL.  The launch counts are the ranks' own, zeroed and read around
+    each driven call."""
+    t_phase = time.perf_counter()
+    out = {"gloo": _parallel_run(card, "gloo", spec)}
+    if torch.cuda.device_count() >= PARALLEL_NPROC:
+        out["nccl"] = _parallel_run(card, "nccl", spec)
+    else:
+        log(f"parallel [{card}]: NCCL across cards not run: {torch.cuda.device_count()} card(s) "
+            f"visible, {PARALLEL_NPROC} ranks need one each")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def train_config(entry, b=BATCH, steps=TRAIN_STEPS):
     """An in-memory config that trains the registry model ``entry`` at full
     width and depth on the synthetic dataset: torch-Adam, lr 1e-3 after a
@@ -844,18 +948,21 @@ def _flat(tree, prefix=""):
 
 def phase_train(device, card, entry, steps=TRAIN_STEPS):
     """The training path: ``experiments/second_stage.train`` on ``entry`` at
-    full width and depth, B=8, one warm-up step then ``steps`` timed steps;
+    full width and all its levels on STEPS_PER_LEVEL MaCowSteps each,
+    B=8, one warm-up step then ``steps`` timed steps;
     the launch counters read around it (neither kernel is on a train step).
     Then: the trained float leaves moved and the frozen and integer leaves
     did not (against a fresh ``init`` from the same seed); ``last.npz``
     reloads through ``ckpt/io`` and the bridge to the trained params bitwise;
     and ``transformer.reverse(transformer.forward(x))`` on 'cuda_unit' returns
-    the batch's motion latent within TRAIN_TOL with 200 K2 launches."""
+    the batch's motion latent within TRAIN_TOL with 4 K2 launches per
+    MaCowStep."""
+    spec = cut_spec(registry.build_specs(entry), STEPS_PER_LEVEL)
     config = train_config(entry, steps=steps)
+    config["architecture"]["num_steps"] = list(spec.flow.num_steps)
     # the epoch is one batch longer than the run, so it never ends and nothing
     # validates here: the eval phase validates, at a depth that saves in seconds
     config["training"]["max_batches_per_epoch"] = 2 + steps
-    spec = registry.build_specs(entry)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
@@ -867,7 +974,8 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
         n_step = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         if run["spec"] != spec:
-            raise SystemExit(f"train: the config's spec is not the registry's {entry.name}")
+            raise SystemExit(f"train: the config's spec is not the registry's {entry.name} "
+                             f"on {spec.flow.num_steps} MaCowSteps")
         hist = run["history"]
         for i, h in enumerate(hist):
             log(f"train [{card}]: step {i}{' (warm-up)' if i == 0 else ''}: flow_loss "
@@ -980,8 +1088,8 @@ def _preempt(cfg_path, name, at_step, timeout_s=RESUME_TIMEOUT_S):
 
 
 def phase_resume(device, card, entry, tmp, steps=RESUME_STEPS):
-    """Resumption at full width and depth (``entry``, B=8, the train
-    phase's config): stage-2 training through ``python -m
+    """Resumption at full width (``entry``, B=8, the train phase's config
+    and cut depth): stage-2 training through ``python -m
     ipoke_tpu_torch.main`` in a child process, sent SIGTERM once its log
     shows step RESUME_SIGNAL_AT; it must exit 0 with ``last.npz`` saved
     after the step in flight (``preempted: True`` and that step).  Then
@@ -996,6 +1104,8 @@ def phase_resume(device, card, entry, tmp, steps=RESUME_STEPS):
     resumed step's ms and the checkpoint's GB."""
     t_phase = time.perf_counter()
     config = train_config(entry, steps=RESUME_EPOCH)
+    config["architecture"]["num_steps"] = list(
+        cut_spec(registry.build_specs(entry), STEPS_PER_LEVEL).flow.num_steps)
     config["general"].update(experiment="second_stage", base_dir=os.path.join(tmp, "logs"))
     config["training"].update(max_batches_per_epoch=RESUME_EPOCH)
     cfg_path = _write_config(os.path.join(tmp, "resume.yaml"), config)
@@ -1005,7 +1115,8 @@ def phase_resume(device, card, entry, tmp, steps=RESUME_STEPS):
     last = os.path.join(ckpt_dir, "last.npz")
     meta = _npz_meta(last) if os.path.exists(last) else None
     ckpt_gb = os.path.getsize(last) / 1e9 if meta else float("nan")
-    log(f"resume [{card}]: preempted run (child process, {entry.name} full width): steps "
+    log(f"resume [{card}]: preempted run (child process, {entry.name} full width, "
+        f"{sum(config['architecture']['num_steps'])} MaCowSteps): steps "
         f"{stepped}, SIGTERM once step {RESUME_SIGNAL_AT} was logged; exit code {rc} "
         f"{exit_s:.1f} s after the signal; last.npz {ckpt_gb:.2f} GB, metadata {meta}")
     if (rc != 0 or not stepped or meta != {"step": stepped[-1], "preempted": True}
@@ -1362,8 +1473,8 @@ def phase_eval(device, card, entry, spec, params, tmp):
     cut["training"].update({"n_epochs": 1, "max_batches_per_epoch": 2, "val_every": 0.5,
                             "max_val_batches": 1})
     cut["testing"]["n_samples_fvd"] = BATCH
-    cut_spec = experiment.build_spec_from_config(cut)
-    cut_units = 4 * sum(cut_spec.flow.num_steps)
+    topk_spec = experiment.build_spec_from_config(cut)
+    cut_units = 4 * sum(topk_spec.flow.num_steps)
     _zero_counts()
     t0 = time.perf_counter()
     run = experiment.train(cut, dirs, device=device)
@@ -1680,6 +1791,7 @@ def ingest_config(entry, spec):
     stage explicitly, the synthetic dataset (no meta tree)."""
     fs = spec.first_stage
     config = train_config(entry)
+    config["architecture"]["num_steps"] = list(spec.flow.num_steps)
     config["general"] = {"experiment": "second_stage", "model_name": entry.name}
     config["first_stage"] = {"spec": {
         "z_dim": fs.z_dim, "ENC_M_channels": list(fs.enc_channels),
@@ -1788,8 +1900,10 @@ def phase_ingest(device, card, entry, params, tmp):
     converted I3D).  Then here: the written npz through the bridge, the flow
     bitwise the smoke's, every spectral-norm kernel W_orig / (u^T W v) of the
     exported tensors, and a B=8 forward_sample on fixed z against the source
-    params with those folded weights."""
-    spec = registry.build_specs(entry)
+    params with those folded weights.  The flow is ``params``' on
+    STEPS_PER_LEVEL MaCowSteps per level."""
+    spec = cut_spec(registry.build_specs(entry), STEPS_PER_LEVEL)
+    flow = cut_flow(params["flow"], STEPS_PER_LEVEL)
     config = ingest_config(entry, spec)
     if experiment.build_spec_from_config(config) != spec:
         raise SystemExit("ingest: the saved config does not give the registry's spec")
@@ -1806,7 +1920,7 @@ def phase_ingest(device, card, entry, params, tmp):
     rest = {"first_stage": first_stage_mod.init(ks[0], spec.first_stage, device, spectral_u=True),
             "poke_embedder": encoders_mod.init_wrapper(ks[1], spec.poke_embedder, device, train=True),
             "conditioner": encoders_mod.init_wrapper(ks[2], spec.conditioner, device, train=True)}
-    tree = {"flow": unbridge_flow(params["flow"]),
+    tree = {"flow": unbridge_flow(flow),
             "first_stage": unbridge_second_stage({"first_stage": rest["first_stage"]},
                                                  spec)["first_stage"],
             "poke_embedder": unbridge_wrapper(rest["poke_embedder"]),
@@ -1823,7 +1937,8 @@ def phase_ingest(device, card, entry, params, tmp):
     t0 = time.perf_counter()
     torch.save({"epoch": 17, "global_step": 100000, "pytorch-lightning_version": "1.1.7",
                 "state_dict": state_dict, "optimizer_states": [], "lr_schedulers": [],
-                "hyper_parameters": {"model_name": entry.name, "num_steps": list(entry.num_steps)}},
+                "hyper_parameters": {"model_name": entry.name,
+                                     "num_steps": list(spec.flow.num_steps)}},
                ck_path)
     seconds["torch_save"] = time.perf_counter() - t0
     n_keys = len(state_dict)
@@ -1894,7 +2009,7 @@ def phase_ingest(device, card, entry, params, tmp):
     converted = bridge_second_stage(conv_tree, spec, device)
     _sync(device)
     seconds["reload"] = time.perf_counter() - t0
-    flow_a, flow_b = _flat(converted["flow"]), _flat(params["flow"])
+    flow_a, flow_b = _flat(converted["flow"]), _flat(flow)
     if set(flow_a) != set(flow_b) or not all(torch.equal(flow_a[k], flow_b[k]) for k in flow_a):
         raise SystemExit("ingest: the converted flow is not the smoke's flow bitwise")
     del flow_a, flow_b
@@ -1918,7 +2033,7 @@ def phase_ingest(device, card, entry, params, tmp):
         "first_stage": torch_import.convert_first_stage(sub("first_stage_model."), spec.first_stage),
         "poke_embedder": torch_import.convert_wrapper(sub("poke_embedder."), spec.poke_embedder),
         "conditioner": torch_import.convert_wrapper(sub("conditioner."), spec.conditioner)},
-        device=device), flow=params["flow"])
+        device=device), flow=flow)
     batch = to_device(next(iter(StaticDataModule(config["data"]).loader("test"))), device,
                       keys=("images", "poke"))
     z = prng.normal(prng.prng_key(5), transformer.reverse_input_shape(
@@ -1958,7 +2073,7 @@ def phase_ingest(device, card, entry, params, tmp):
 # ---------------------------------------------------------------------------
 
 DATA_VIDEOS, DATA_FRAMES, DATA_STORED, DATA_GAPS = 4, 30, 256, (5, 10)
-DATA_BATCHES = 10          # loader batches timed per augment setting (two epochs)
+DATA_BATCHES = 4           # loader batches timed per augment setting
 AE_STEPS = 4               # timed encoder steps, after one warm-up step
 AE_BATCH = 16              # configs/img_encoder.yaml, configs/poke_encoder.yaml
 ENC_TOL = 2e-4             # the card's encoder step against the CPU's, relative to 1 + max|ref|
@@ -2171,7 +2286,7 @@ def phase_data(device, card, entry, train_step_ms, tmp):
     out["h2d"] = _h2d(card, device, batch_np)
     log(f"data [{card}]: loader {out['loader'][0]['batches_per_s']:.3f} batches/s (augment off), "
         f"{out['loader'][1]['batches_per_s']:.3f} (on), against the stage-2 train step of the "
-        f"train phase {train_step_ms:.1f} ms ({1e3 / train_step_ms:.3f} steps/s); K1/K2 launches {n}")
+        f"train phase (one MaCowStep per level) {train_step_ms:.1f} ms ({1e3 / train_step_ms:.3f} steps/s); K1/K2 launches {n}")
     if n != (0, 0) or not all(0 < r["zero_poke_share"] < 0.5 for r in out["loader"]):
         raise SystemExit(f"data: the loader launched a kernel or drew no zero pokes: {out['loader']}")
 
@@ -2612,7 +2727,7 @@ def main():
     log(f"device: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     infos = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(infos)} kernels (parallel nvcc)")
     for name, info in infos.items():
@@ -2659,6 +2774,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
         ingest = phase_ingest(device, card, entry, params, tmp)
     del params
+    torch.cuda.empty_cache()   # the parallel phase's ranks need the card
+    parallel = phase_parallel(card, spec)
     train = phase_train(device, card, entry)
     torch.cuda.empty_cache()   # the child of the resume phase needs the train step's memory
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
@@ -2695,6 +2812,12 @@ def main():
              ingest_self_check_launches=ingest["child_launches"]["self_check"][name],
              ingest_gate_launches=ingest["child_launches"]["gate"][name],
              ingest_reload_sample_launches=ingest["launches"][name],
+             parallel_sample_launches=[r["sample"][k]["launches"][name]
+                                       for r in parallel["gloo"]["reports"]
+                                       for k in ("z_fixed", "z_drawn")],
+             parallel_train_step_launches=[leg["launches"][name]
+                                           for r in parallel["gloo"]["reports"]
+                                           for leg in r["ok"] + [r["fsdp"]]],
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
@@ -2706,6 +2829,8 @@ def main():
         r["cluster"] = kernels[r["name"]]["cluster"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
+    log(f"smoke: every phase held, {time.perf_counter() - t_run:.1f} s from the build's start")
+    print(json.dumps({"parallel": parallel}, default=float), flush=True)
     print(json.dumps({"ingest": ingest}, default=float), flush=True)
     print(json.dumps({"prep": prep}, default=float), flush=True)
     print(json.dumps({"data": data}, default=float), flush=True)

@@ -110,11 +110,17 @@ def to_device(batch, device, keys=None, pin: bool = False):
     return out
 
 
-def device_prefetch(batches: Iterable, device, keys=None, size: int = 2):
+def device_prefetch(batches: Iterable, device, keys=None, size: int = 2, mesh=None):
     """The batches of ``batches`` as tensors on ``device``, ``size`` copies
-    ahead; on a CUDA device through pinned memory on a side stream."""
+    ahead; on a CUDA device through pinned memory on a side stream.  With a
+    ``mesh`` (``parallel/mesh``), each global batch's rows of this rank over
+    ``data`` (``shard_batch``) are all it copies."""
     device = torch.device(device)
     it = iter(batches)
+    if mesh is not None:
+        from ipoke_tpu_torch.parallel.mesh import shard_batch
+
+        it = (shard_batch(mesh, b) for b in it)
     buf = deque()
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 

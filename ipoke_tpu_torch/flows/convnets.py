@@ -5,16 +5,27 @@
   MCF block      shifted conv -> [cat h] -> act -> 1x1 wn conv
   NICE block     3x3 -> act -> 1x1 -> [cat h] -> act -> 3x3 wn conv
 
+A NICE block whose convs are split over a tensor-parallel group (the rule
+``parallel/sharding.flow_param_shardings``: conv1 by its output channels,
+conv2 and conv3 by their input channels) runs split inside
+``model_parallel(group)``.
+
 The attention NICE block waits in ROADMAP queue 1.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 from ipoke_tpu_torch.nn import core
 from ipoke_tpu_torch.nn.core import activation, conv2d
+from ipoke_tpu_torch.parallel import distributed
 from ipoke_tpu_torch.utils import prng
+
+_MODEL_GROUP = contextvars.ContextVar("ipoke_model_group", default=None)
 
 
 def init_wn_conv(key, kh, kw, c_in, c_out, device="cpu"):
@@ -85,11 +96,46 @@ def mcf_block_apply(p, x, order, h=None, act="elu"):
     return wn_conv_apply(p["conv1x1"], activation(act)(c))
 
 
+@contextlib.contextmanager
+def model_parallel(group):
+    """NICE blocks holding split convs run split over ``group`` (the
+    ``model`` axis of the mesh) inside this context."""
+    token = _MODEL_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _MODEL_GROUP.reset(token)
+
+
+def _nice_split(p, x, h, f, group):
+    """The NICE block on this rank's shards: conv1's output channels, conv2's
+    and conv3's input channels.  conv2's and conv3's partial sums are summed
+    over ``group``; conv3's weight norm sums its squares over the shards.
+    Input and output are the same on every rank of ``group``."""
+    x = distributed.copy_to(x, group)
+    out = f(conv2d(x, p["conv1"]["w"], None, padding=1))
+    out = distributed.reduce_from(conv2d(out, p["conv2"]["w"], None, padding=0), group)
+    if h is not None:
+        out = torch.cat([out, h.to(out.dtype)], dim=-1)
+    v, g, b = p["conv3"]["v"], p["conv3"]["g"], p["conv3"]["b"]
+    k = v.shape[1]
+    mine = distributed.copy_to(f(out), group).narrow(-1, distributed.group_rank(group) * k, k)
+    sq = distributed.all_reduce(v.square().sum(dim=(1, 2, 3), keepdim=True), group)
+    g = distributed.copy_to(g, group).reshape(-1, 1, 1, 1).to(v.dtype)
+    w = v / sq.sqrt().clamp_min(1e-12) * g
+    return distributed.reduce_from(conv2d(mine, w, None, padding=1), group) + b.to(out.dtype)
+
+
 def nice_conv_block_apply(p, x, h=None, act="elu"):
     if "in_resnet" in p:
         raise NotImplementedError(
             "attention NICE blocks are not ported yet (ROADMAP.md queue 1)")
     f = activation(act)
+    if p["conv1"]["w"].shape[0] != p["conv2"]["w"].shape[0]:   # conv1 split by its outputs
+        group = _MODEL_GROUP.get()
+        if group is None:
+            raise RuntimeError("a NICE block of split convs outside model_parallel(group)")
+        return _nice_split(p, x, h, f, group)
     out = f(conv2d(x, p["conv1"]["w"], None, padding=1))
     out = conv2d(out, p["conv2"]["w"], None, padding=0)
     if h is not None:

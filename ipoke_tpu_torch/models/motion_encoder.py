@@ -3,8 +3,8 @@
 Video layout (B, T, H, W, C); conv kernels OIDHW.  The encoder compresses a
 T x S x S x 3 video into a (B, s, s, z_dim) motion latent, with the temporal
 strides the reference derives from (max_frames, full_seq, spatial_size,
-min_spatial_size).  The JAX ``apply``'s ``conv_fn``/``gn_fn``/``t_reduce``
-hooks for sequence parallelism are not ported (ROADMAP queue 1 item 7).
+min_spatial_size).  ``apply``'s ``conv_fn``/``gn_fn``/``t_reduce`` hooks let
+``parallel/seqpar.py`` run it on a time-sharded video.
 """
 from __future__ import annotations
 
@@ -71,15 +71,15 @@ def _init_basic_block(key, c_in, c_out, stride, device):
     return p
 
 
-def _basic_block_apply(p, x, stride):
-    out = conv3d(x, p["conv1"]["w"], stride=stride, padding=1)
-    out = F.relu(group_norm(out, p["gn1"]["gamma"], p["gn1"]["beta"], 16))
-    out = conv3d(out, p["conv2"]["w"], stride=1, padding=1)
-    out = group_norm(out, p["gn2"]["gamma"], p["gn2"]["beta"], 16)
+def _basic_block_apply(p, x, stride, conv_fn=conv3d, gn_fn=group_norm):
+    out = conv_fn(x, p["conv1"]["w"], stride=stride, padding=1)
+    out = F.relu(gn_fn(out, p["gn1"]["gamma"], p["gn1"]["beta"], 16))
+    out = conv_fn(out, p["conv2"]["w"], stride=1, padding=1)
+    out = gn_fn(out, p["gn2"]["gamma"], p["gn2"]["beta"], 16)
     residual = x
     if "down" in p:
-        residual = conv3d(x, p["down"]["w"], stride=stride, padding=0)
-        residual = group_norm(residual, p["down"]["gn"]["gamma"], p["down"]["gn"]["beta"], 16)
+        residual = conv_fn(x, p["down"]["w"], stride=stride, padding=0)
+        residual = gn_fn(residual, p["down"]["gn"]["gamma"], p["down"]["gn"]["beta"], 16)
     return F.relu(out + residual)
 
 
@@ -90,10 +90,10 @@ def _init_layer(key, c_in, c_out, n_blocks, stride, device):
     return blocks
 
 
-def _layer_apply(blocks, x, stride):
-    x = _basic_block_apply(blocks[0], x, stride)
+def _layer_apply(blocks, x, stride, conv_fn=conv3d, gn_fn=group_norm):
+    x = _basic_block_apply(blocks[0], x, stride, conv_fn, gn_fn)
     for b in blocks[1:]:
-        x = _basic_block_apply(b, x, (1, 1, 1))
+        x = _basic_block_apply(b, x, (1, 1, 1), conv_fn, gn_fn)
     return x
 
 
@@ -122,23 +122,33 @@ def init(key, spec: MotionEncoderSpec, device="cpu"):
     return p
 
 
-def apply(params, x, spec: MotionEncoderSpec, rng=None):
+def apply(params, x, spec: MotionEncoderSpec, rng=None, conv_fn=conv3d, gn_fn=group_norm,
+          t_reduce=None):
     """x: (B, T, H, W, 3) video -> (z, mu, logvar), each (B, s, s, z_dim).
 
     Without a sampling key (the second stage) or with a deterministic spec,
     z is mu; with a JAX key ``rng`` (``utils/prng``), the reparameterised
-    draw ``normal(rng, logvar.shape) * exp(logvar / 2) + mu``."""
+    draw ``normal(rng, logvar.shape) * exp(logvar / 2) + mu``.
+
+    ``conv_fn`` / ``gn_fn`` / ``t_reduce`` stand in for the 3D convs, the
+    GroupNorms and the temporal squeeze, so that a caller can run
+    communication-aware ops (``parallel/seqpar.py``: halo convs, GroupNorm
+    of global moments, a cross-shard temporal mean) through the same layer
+    plumbing; the defaults are the dense ops."""
     _, stride1, stride4, has_l4, has_l5, _ = spec.derived()
-    out = conv3d(x, params["conv1"]["w"], stride=(2, 2, 2), padding=(1, 3, 3))
-    out = F.relu(group_norm(out, params["gn1"]["gamma"], params["gn1"]["beta"], 16))
-    out = _layer_apply(params["layer1"], out, stride1)
-    out = _layer_apply(params["layer2"], out, (2, 2, 2))
-    out = _layer_apply(params["layer3"], out, (2, 2, 2))
+    out = conv_fn(x, params["conv1"]["w"], stride=(2, 2, 2), padding=(1, 3, 3))
+    out = F.relu(gn_fn(out, params["gn1"]["gamma"], params["gn1"]["beta"], 16))
+    out = _layer_apply(params["layer1"], out, stride1, conv_fn, gn_fn)
+    out = _layer_apply(params["layer2"], out, (2, 2, 2), conv_fn, gn_fn)
+    out = _layer_apply(params["layer3"], out, (2, 2, 2), conv_fn, gn_fn)
     if has_l4:
-        out = _layer_apply(params["layer4"], out, stride4)
+        out = _layer_apply(params["layer4"], out, stride4, conv_fn, gn_fn)
     if has_l5:
-        out = _layer_apply(params["layer5"], out, (2, 2, 2))
-    out = out.squeeze(1) if out.shape[1] == 1 else out.mean(dim=1)   # temporal squeeze
+        out = _layer_apply(params["layer5"], out, (2, 2, 2), conv_fn, gn_fn)
+    if t_reduce is not None:
+        out = t_reduce(out)
+    else:   # temporal squeeze
+        out = out.squeeze(1) if out.shape[1] == 1 else out.mean(dim=1)
     mu = core.conv2d(out, params["conv_mu"]["w"], params["conv_mu"]["b"], padding=1)
     logvar = core.conv2d(out, params["conv_var"]["w"], params["conv_var"]["b"], padding=1)
     if spec.deterministic or rng is None:

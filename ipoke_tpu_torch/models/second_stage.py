@@ -24,6 +24,7 @@ from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.nn.blocks import init_conv
 from ipoke_tpu_torch.nn.core import conv2d, conv_transpose2d
+from ipoke_tpu_torch.parallel.mesh import axis_index, axis_size
 from ipoke_tpu_torch.utils import prng
 
 
@@ -212,7 +213,7 @@ def decode_first_stage(params, spec: SecondStageSpec, motion, x0, length: int):
 @torch.no_grad()
 def forward_sample(params, spec: SecondStageSpec, batch, rng=None, n_samples: int = 1,
                    length: Optional[int] = None, add_first_frame: bool = False,
-                   z: Optional[torch.Tensor] = None):
+                   z: Optional[torch.Tensor] = None, mesh=None):
     """``n_samples`` stochastic videos for each batch element:
     (n_samples, B, T, S, S, 3).
 
@@ -224,6 +225,11 @@ def forward_sample(params, spec: SecondStageSpec, batch, rng=None, n_samples: in
     folded into the batch axis.  Every op is per example, so a caller that
     fixes z per request gets outputs that do not depend on which other
     requests share the batch.
+
+    With a ``mesh`` (``parallel/mesh``), ``batch`` holds this rank's rows of
+    the global batch (``mesh.shard_batch``) and ``z`` (given, or drawn from
+    ``rng``) is the global batch's: the rank takes its rows of it and
+    returns its rows of the videos, which are the one-process videos' rows.
     """
     x = batch["images"]
     poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
@@ -231,13 +237,20 @@ def forward_sample(params, spec: SecondStageSpec, batch, rng=None, n_samples: in
     b = x.shape[0]
     if length is None:
         length = x.shape[1] - 1
-    z_shape = transformer.reverse_input_shape(spec.flow, b, spec.latent_size, spec.flow_in_channels)
+    n_data, i = (1, 0) if mesh is None else (axis_size(mesh, "data"), axis_index(mesh, "data"))
+    z_shape = transformer.reverse_input_shape(spec.flow, b * n_data, spec.latent_size,
+                                              spec.flow_in_channels)
     if z is None:
         if rng is None:
             raise ValueError("forward_sample needs a fixed z or a JAX key rng")
         z = torch.stack([prng.normal(k, z_shape, x.device) for k in prng.split(rng, n_samples)])
     elif z.dim() == len(z_shape):
         z = z[None]
+    if mesh is not None:   # this rank's rows of the global draw
+        if tuple(z.shape[1:]) != tuple(z_shape):
+            raise ValueError(f"z of shape {tuple(z.shape)} for a global batch of {z_shape}")
+        z = z[:, i * b:(i + 1) * b]
+        z_shape = (b,) + tuple(z_shape[1:])
     n = z.shape[0]
     cond = embed_cond(params, spec, x0, poke)
 

@@ -13,7 +13,8 @@ amsgrad), ``optax.adam`` (``adam``), ``optax.adamw``, ``optax.adabelief`` and
 with optax's step count: the schedule reads the count before the update, so
 the first step runs at lr(0).  The gradients come from autograd;
 microbatches, when asked for, run one after another and their gradients are
-averaged.  ``shard_train_setup`` waits for ROADMAP queue 1 item 7.
+averaged.  ``shard_train_setup`` runs a step over a ``parallel/mesh`` of
+processes: data parallel, ZeRO-1, FSDP and tensor parallel.
 """
 from __future__ import annotations
 
@@ -61,17 +62,20 @@ def global_norm(tensors):
 # ---------------------------------------------------------------------------
 
 class _Clip:
-    """optax.clip_by_global_norm: ``t / norm * max_norm`` when norm >= max_norm."""
+    """optax.clip_by_global_norm: ``t / norm * max_norm`` when norm >= max_norm.
+    ``norm``: the global norm of the updates it is given (a sharded step's
+    sums the squares of every rank's slices)."""
     name = "clip"
 
-    def __init__(self, max_norm):
+    def __init__(self, max_norm, norm=global_norm):
         self.max_norm = max_norm
+        self.norm = norm
 
     def init(self, params):
         return {}
 
     def update(self, updates, state, params):
-        g_norm = global_norm(updates).item()
+        g_norm = self.norm(updates).item()
         if g_norm < self.max_norm:
             return updates
         out = torch._foreach_div(updates, g_norm)
@@ -219,6 +223,11 @@ class Optimizer:
             grads = t.update(grads, s, params)
         return grads
 
+    def with_norm(self, norm):
+        """This chain with ``norm`` as clip_by_global_norm's global norm."""
+        return Optimizer([_Clip(t.max_norm, norm) if isinstance(t, _Clip) else t
+                          for t in self.transforms], self.layout, self.masked)
+
 
 def torch_adam(schedule, weight_decay: float = 0.0, amsgrad: bool = False,
                b1: float = 0.9, b2: float = 0.999):
@@ -287,6 +296,11 @@ def make_train_step(spec, frozen_params, optimizer: Optimizer, spatial_mean: boo
     of the gradients before clipping.  ``compute_dtype`` (e.g.
     ``torch.bfloat16``): the forward runs in that dtype on casts of the f32
     params, so the gradients come back in f32; logdet and NLL sum in f32.
+
+    The step carries what ``shard_train_setup`` builds its own from:
+    ``grads_of(trainable, batch, rng)`` -> (loss, logs, gradients of the float
+    leaves), without the reference NLL when ``rng`` is None, and the
+    settings it was made with.
     """
     policy = Policy(compute_dtype) if compute_dtype is not None else None
 
@@ -321,4 +335,220 @@ def make_train_step(spec, frozen_params, optimizer: Optimizer, spatial_mean: boo
         apply_updates(optimizer, state, grads)
         return TrainState(state.step + 1, state.params, state.opt_state), metrics
 
+    train_step.grads_of = grads_of
+    train_step.spec, train_step.optimizer = spec, optimizer
+    train_step.spatial_mean, train_step.n_microbatches = spatial_mean, n_microbatches
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the step over a mesh of processes
+# ---------------------------------------------------------------------------
+
+class _Leaf(NamedTuple):
+    """Where a float leaf lives on the mesh: ``store`` the placement of the
+    param between steps (tensor parallel over ``model``, FSDP over
+    ``data``), ``zero`` the placement over ``data`` of its moments and of
+    the slice of it this rank updates."""
+    store: object
+    zero: object
+
+
+def _with_float_leaves(tree, new):
+    """``tree`` with its float leaves replaced, in order, by ``new``."""
+    it = iter(new)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return next(it) if t is not None and t.is_floating_point() else t
+
+    out = walk(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def _sum_in_buckets(tensors, group, bucket_bytes=1 << 26):
+    """Sum every tensor over ``group`` in place, a few flattened buckets per
+    all-reduce."""
+    import torch.distributed as dist
+
+    bucket, size = [], 0
+
+    def flush():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        torch._foreach_copy_(bucket, [c.view_as(t) for c, t in
+                                      zip(flat.split([t.numel() for t in bucket]), bucket)])
+
+    for t in tensors:
+        if bucket and (t.dtype != bucket[0].dtype or size + t.nbytes > bucket_bytes):
+            flush()
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.nbytes
+    if bucket:
+        flush()
+
+
+def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
+                      zero_opt: bool = True, donate: bool = True, zero_min_size: int = 8192,
+                      fsdp: bool = False):
+    """Place ``state`` on ``mesh`` (``parallel/mesh.make_mesh``, one process
+    per place) and build the step that trains it there.
+
+    Every process calls this with the same ``state`` (the one-process
+    ``init_state``, or a restored one) and ``step_fn`` (``make_train_step``'s
+    result).  Returns ``(placed_state, step)`` with ``step(state,
+    local_batch, rng) -> (state, metrics)``: ``local_batch`` is this rank's
+    rows of the global batch (``mesh.shard_batch``), ``rng`` the same key on
+    every rank, and the metrics those of the one-process step on the global
+    batch: the losses averaged over ``data``, the reference NLL of the
+    global batch's draw, ``grad_norm`` the norm of the whole gradient.
+
+    * data parallel: each rank's gradients of its rows, averaged over
+      ``data`` by an all-reduce;
+    * ``param_shardings`` (tensor parallel, ``parallel/sharding.
+      flow_param_shardings``): a leaf placed on ``model`` is held, computed
+      and updated as this rank's shard (the NICE blocks of the flow's priors
+      run split, ``flows/convnets.model_parallel``);
+    * ``zero_opt`` (ZeRO-1): the moments of every leaf that
+      ``zero_opt_state_shardings`` places are this rank's slice over
+      ``data``; each rank updates its slice of the param, then the slices are
+      all-gathered;
+    * ``fsdp``: every leaf ``fsdp_param_shardings`` places on ``data`` (a
+      tensor-parallel placement wins) is held as this rank's slice between
+      steps and all-gathered, whole, at the start of each step; its gradient
+      is averaged and sliced again (an all-reduce, then a slice).
+
+    ``clip_by_global_norm`` and ``grad_norm`` sum the squares of every
+    rank's slices.  The step updates ``placed_state`` in place, as JAX's
+    donated step reuses its buffers; with ``donate=False`` the placed state
+    is a copy and ``state`` stays as it was.  ``step.full_params(state)``
+    gathers the whole trainable tree on every rank.
+    """
+    import torch.distributed as dist
+
+    from ipoke_tpu_torch.ckpt.jax_bridge import grown_adapters
+    from ipoke_tpu_torch.flows import convnets, transformer
+    from ipoke_tpu_torch.flows.loss import nll
+    from ipoke_tpu_torch.parallel import distributed as pdist
+    from ipoke_tpu_torch.parallel import sharding as psh
+    from ipoke_tpu_torch.parallel.mesh import axis_size, group
+
+    if not hasattr(step_fn, "grads_of"):
+        raise TypeError("shard_train_setup takes a step made by make_train_step")
+    if step_fn.n_microbatches > 1:
+        raise NotImplementedError("microbatches in a step over a mesh")
+    spec = step_fn.spec
+    transposed = tuple(grown_adapters(spec))
+    n_data, n_model = axis_size(mesh, "data"), axis_size(mesh, "model")
+    groups = {axis: group(mesh, axis) for axis in ("data", "model")}
+    store_tree = param_shardings
+    if fsdp:
+        store_tree = psh.fsdp_param_shardings(mesh, state.params, min_size=zero_min_size,
+                                              tp_shardings=param_shardings,
+                                              transposed=transposed)
+    zero_tree = (psh.zero_opt_state_shardings(mesh, state.params, min_size=zero_min_size,
+                                              transposed=transposed) if zero_opt else None)
+    all_leaves = leaves(state.params)
+
+    def float_placements(tree):
+        if tree is None:
+            return [None] * len(float_leaves(state.params))
+        return [p for t, p in zip(all_leaves, psh.placements(tree))
+                if t is not None and t.is_floating_point()]
+
+    plans = [_Leaf(store, zero) for store, zero in
+             zip(float_placements(store_tree), float_placements(zero_tree))]
+    on_model = [p.store is not None and p.store.axis == "model" for p in plans]
+    on_data = [p.store is not None and p.store.axis == "data" for p in plans]
+
+    def chunk(t, split):
+        return t if split is None else pdist.chunk(t, split.dim, groups[split.axis])
+
+    def gather(t, split):
+        return t if split is None else pdist.gather_cat(t, split.dim, groups[split.axis])
+
+    # the placed state: stored params, moments on the update slices
+    full = float_leaves(state.params)
+    n_float = len(full)
+    stored = []
+    for t, p, fs in zip(full, plans, on_data):
+        s = chunk(t.detach(), p.store)
+        s = s.clone() if (p.store is not None or not donate) else s
+        stored.append(s.requires_grad_(not fs))
+    params = _with_float_leaves(state.params, stored)
+
+    def moment_view(m, p, tp):
+        return chunk(chunk(m, p.store) if tp else m, p.zero).clone()
+
+    opt_state = []
+    for s in state.opt_state:
+        s = dict(s)
+        for k, v in s.items():
+            if isinstance(v, list) and len(v) == n_float:
+                s[k] = [moment_view(m, p, tp) for m, p, tp in zip(v, plans, on_model)]
+        opt_state.append(s)
+
+    # the whole gradient's norm: each leaf's squares counted once over the mesh
+    weights = [(1.0 if p.zero is not None else 1.0 / n_data) * (1.0 if tp else 1.0 / n_model)
+               for p, tp in zip(plans, on_model)]
+
+    def norm(tensors):
+        sq = torch.stack(torch._foreach_norm(tensors)).float().square()
+        total = (sq * torch.tensor(weights, device=sq.device)).sum()
+        dist.all_reduce(total)
+        return total.sqrt()
+
+    optimizer = step_fn.optimizer.with_norm(norm)
+
+    def step(st: TrainState, local_batch, rng):
+        mine = float_leaves(st.params)
+        compute = [gather(t, p.store).requires_grad_(True) if fs else t
+                   for t, p, fs in zip(mine, plans, on_data)]
+        tree = _with_float_leaves(st.params, compute)
+        if any(on_model):
+            with convnets.model_parallel(groups["model"]):
+                _, logs, grads = step_fn.grads_of(tree, local_batch, None)
+        else:
+            _, logs, grads = step_fn.grads_of(tree, local_batch, None)
+        if n_data > 1:
+            _sum_in_buckets(grads, groups["data"])
+            torch._foreach_div_(grads, n_data)
+            names = ("flow_loss", "nlogdet_loss", "nll_loss")
+            losses = pdist.sum_(torch.stack([logs[k] for k in names]), groups["data"]) / n_data
+            logs = dict(logs, **dict(zip(names, losses.unbind())))
+        rows = next(iter(local_batch.values())).shape[0] * n_data
+        shape = transformer.reverse_input_shape(spec.flow, rows, spec.latent_size,
+                                                spec.flow_in_channels)
+        ref = prng.normal(rng, shape, logs["flow_loss"].device)
+        logs["reference_nll_loss"] = nll(ref, step_fn.spatial_mean).mean()
+        g_mine = [chunk(g, p.zero) for g, p in zip(grads, plans)]
+        metrics = dict(logs, grad_norm=norm(g_mine))
+        with torch.no_grad():
+            p_mine = [chunk(c, p.zero) for c, p in zip(compute, plans)]
+            torch._foreach_add_(p_mine, optimizer.update(g_mine, st.opt_state, p_mine))
+            for t, c, u, p, fs in zip(mine, compute, p_mine, plans, on_data):
+                if fs:
+                    t.copy_(chunk(c, p.store))
+                elif p.zero is not None:
+                    c.copy_(gather(u, p.zero))
+        return TrainState(st.step + 1, st.params, st.opt_state), metrics
+
+    def local_view(i, whole, moment=False):
+        """This rank's piece of float leaf ``i`` given whole (or, with
+        ``moment``, of one of its moments), as the placed state holds it."""
+        if moment:
+            return moment_view(whole, plans[i], on_model[i])
+        return chunk(whole, plans[i].store)
+
+    def full_params(st: TrainState):
+        return _with_float_leaves(st.params, [gather(t.detach(), p.store) for t, p in
+                                              zip(float_leaves(st.params), plans)])
+
+    step.full_params, step.local_view, step.plans = full_params, local_view, plans
+    return TrainState(state.step, params, opt_state), step

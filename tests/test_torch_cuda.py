@@ -881,3 +881,33 @@ def test_fid_features_on_the_card_match_the_cpu(cuda):
     assert card.shape == (2, 2048) and torch.isfinite(card).all()
     err = float((card - cpu).abs().max() / (1 + cpu.abs().max()))
     assert err <= 1e-4, err
+
+
+@pytest.mark.gpu
+def test_parallel_train_check_calls_planted_faults_wrong_on_the_card(cuda):
+    """tests/torch_parallel_faults.py at tiny width, two ranks on this card:
+    the sound data-parallel leg held, each planted fault called wrong."""
+    from torch_parallel_faults import main
+
+    assert main(["--device", "cuda", "--timeout", "300"]) == 0
+
+
+@pytest.mark.gpu
+def test_parallel_dryrun_on_the_card(cuda):
+    """python -m ipoke_tpu_torch.parallel.dryrun at tiny width: two ranks on
+    this card over gloo (NCCL refuses two ranks on one card), every leg held
+    against its one-process run, K2 in every rank's sampling call and in no
+    train step."""
+    from ipoke_tpu_torch.parallel import dryrun
+
+    reports = dryrun.run(2, "cuda", "gloo", full=False, timeout=300)
+    units = 4 * sum(dryrun.tiny_spec().flow.num_steps)
+    for r in reports:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        for leg in r["ok"] + [r["fsdp"]]:
+            assert dryrun.held(leg, dryrun.TRAIN_TOLS["cuda"]), leg["errs"]
+            assert leg["launches"] == {"mcf_inverse": 0, "macow_unit_inverse": 0}
+        assert r["seqpar"]["max_abs_err"] < dryrun.SEQ_TOL
+        for k in ("z_fixed", "z_drawn"):
+            assert r["sample"][k]["max_abs_err"] <= dryrun.CUDA_BATCH_TOL
+            assert r["sample"][k]["launches"] == {"mcf_inverse": 0, "macow_unit_inverse": units}
