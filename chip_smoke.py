@@ -15,13 +15,27 @@ Phases, each fatal on failure:
              flagship's shapes (B=8, 8x8 latent, with and without h); each
              timed beside its bound at the level-0 shape and its planned G,
              swept over G at C=32, 16, 4 and 64 (hc=128), and timed at every
-             flagship level at its planned G for its share of one call.
+             flagship level at its planned G for its share of one call; K2
+             on one weight slice (where two do not fit one CTA) at C=96 on
+             8x8 and C=128 on 4x4, against its plain version at every G it
+             takes, timed beside its bound.
   4. slice   iper_128 at full width, params synthesised on the card from a
              seed, bf16 decode: a few requests of 8 through forward_sample on
              the default backend 'cuda_unit' (K2, 200 launches per call) and
              one on the option 'cuda' (K1, 800 launches), launch counts read
              around them; then one batch through 'cuda_unit', 'cuda' and
              'scan' (plain) with non-zero flow output gains, compared.
+  4b. variants the flow variants the configs expose (VARIANT_LEGS), each at
+             full width on STEPS_PER_LEVEL MaCowSteps per level, JAX's init
+             on the card, flow output gains CROSS_GAIN, B=8, f32 decode:
+             plants_128 with 32 augment channels, condition_nice, use1x1 and
+             cond_conv (K2 on one slice at levels 0-4); iper_128 as a 'down'
+             multistack (K2 on one slice at C=128, 120, 112 on 4x4);
+             iper_128 with attention and cond_conv at hidden 256.  Each: one
+             z through 'cuda_unit', 'cuda' and 'scan' within CROSS_TOL, K2 4
+             and K1 16 launches per MaCowStep, reverse(forward(x)) within
+             TRAIN_TOL; on the augmented leg one make_train_step step with
+             finite loss and non-zero gradients of the augment gains.
   5. serve   the serving path on the same params: the port's HTTP server
              (127.0.0.1, a free port) over a SampleBatcher (max_batch 8,
              30 ms window), every bucket warmed, then the port's load test
@@ -199,7 +213,7 @@ Phases, each fatal on failure:
              Horn-Schunck's EPE on the extracted frames, which must beat no
              flow); then one batch of the tree through StaticDataModule and
              2 stage-2 steps through main at cut depth.  No kernel launches.
- 12. report  a JSON line of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
+ 12. report  a JSON line of the variants phase, one of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
@@ -251,7 +265,7 @@ from ipoke_tpu_torch.experiments import encoders as experiment_enc  # noqa: E402
 from ipoke_tpu_torch.eval import test_modes  # noqa: E402
 from ipoke_tpu_torch.experiments import first_stage as experiment_fs  # noqa: E402
 from ipoke_tpu_torch.experiments import second_stage as experiment  # noqa: E402
-from ipoke_tpu_torch.flows import transformer  # noqa: E402
+from ipoke_tpu_torch.flows import mcf, transformer  # noqa: E402
 from ipoke_tpu_torch.metrics import i3d  # noqa: E402
 from ipoke_tpu_torch.metrics.lpips import lpips_pretrained  # noqa: E402
 from ipoke_tpu_torch.models import encoders as encoders_mod  # noqa: E402
@@ -326,6 +340,9 @@ ENTRY_TIMEOUT_S = 240      # the entry points' child processes, start-up include
 # all 15 levels with the first MaCowStep of each (at 50 MaCowSteps their exports,
 # checkpoints and gloo transfers took ~450 s of the run, PERF.md)
 STEPS_PER_LEVEL = 1
+# K2's one-slice shapes (C, latent size): plants_128 with 32 augment channels
+# at level 0, and iper_128's multistack 'down' block at 4x4
+K2_ONE_SLICE = ((96, 8), (128, 4))
 # the parallel phase: ranks on the card, and how long the spawned dry run may take
 PARALLEL_NPROC, PARALLEL_TIMEOUT_S = 2, 600
 # resumption at full width: the child's epoch (long enough that it never ends
@@ -340,10 +357,11 @@ def log(msg):
 
 def phase_kernels(device, card, k1_levels=(32, 4, 64), k2_levels=(32, 4, 64),
                   sweep_levels=(32, 16, 4, 64), b=BATCH, s=LATENT, hc_full=HC,
-                  flagship_levels=None):
+                  flagship_levels=None, k2_one_slice=K2_ONE_SLICE):
     """Each kernel against its plain version at every cluster size G it
     takes, and timed, at the flagship's shapes (level 0 is ``k1_levels[0]``
-    = ``k2_levels[0]``); each swept over G; ``card`` labels the times."""
+    = ``k2_levels[0]``); K2 also on one weight slice at the (C, size) of
+    ``k2_one_slice``; each swept over G; ``card`` labels the times."""
     gen = torch.Generator().manual_seed(0)
     report = {name: {"max_abs_err": 0.0} for name in ("mcf_inverse", "macow_unit_inverse")}
 
@@ -361,7 +379,7 @@ def phase_kernels(device, card, k1_levels=(32, 4, 64), k2_levels=(32, 4, 64),
         log(f"kernels [{card}]: {label}: {ms:.4f} ms/launch on the device ({ev_ms:.4f} by "
             f"events in a loop), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}; "
             f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB), {flops / ms / 1e9:.1f} GFLOP/s")
-        report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
     # K1 in all four orders, at every cluster size it takes
     for c in k1_levels:
@@ -374,9 +392,10 @@ def phase_kernels(device, card, k1_levels=(32, 4, 64), k2_levels=(32, 4, 64),
                           k1.mcf_inverse(z, h, w, w1, b1, order, cluster=g), ref)
                 if c == k1_levels[0] and hc == hc_full and order == "A":
                     g = k1_plan(c, hc, s)   # the level-0 shape, at the plan's G
-                    timed("mcf_inverse", K1_KERNEL, f"K1 B={b} C={c} hc={hc} order A G={g} (plan)",
+                    report["mcf_inverse"].update(timed(
+                          "mcf_inverse", K1_KERNEL, f"K1 B={b} C={c} hc={hc} order A G={g} (plan)",
                           lambda: k1.mcf_inverse(z, h, w, w1, b1),
-                          lambda: k1.mcf_inverse_plain(z, h, w, w1, b1), *k1_work(b, s, c, hc))
+                          lambda: k1.mcf_inverse_plain(z, h, w, w1, b1), *k1_work(b, s, c, hc)))
                     report["mcf_inverse"]["cluster"] = g
 
     # K2 at every cluster size it takes
@@ -389,10 +408,32 @@ def phase_kernels(device, card, k1_levels=(32, 4, 64), k2_levels=(32, 4, 64),
                       k2.macow_unit_inverse(y, h, weights, *an, cluster=g), ref)
             if c == k2_levels[0] and hc == hc_full:   # the level-0 shape, at the plan's G
                 g = k2_plan(c, hc, s)
-                timed("macow_unit_inverse", K2_KERNEL, f"K2 B={b} C={c} hc={hc} G={g} (plan)",
-                      lambda: k2.macow_unit_inverse(y, h, weights, *an),
-                      lambda: k2.macow_unit_inverse_plain(y, h, weights, *an), *k2_work(b, s, c, hc))
+                report["macow_unit_inverse"].update(timed(
+                    "macow_unit_inverse", K2_KERNEL, f"K2 B={b} C={c} hc={hc} G={g} (plan)",
+                    lambda: k2.macow_unit_inverse(y, h, weights, *an),
+                    lambda: k2.macow_unit_inverse_plain(y, h, weights, *an),
+                    *k2_work(b, s, c, hc)))
                 report["macow_unit_inverse"]["cluster"] = g
+
+    # K2 on one weight slice, at shapes where two do not fit one CTA: every G
+    # it takes against the plain version, then timed at the plan's G
+    report["macow_unit_inverse"]["one_slice"] = []
+    for c, s1 in k2_one_slice:
+        weights, an, y, h = unit_inputs(gen, c, hc_full, b, s1, device)
+        slices = k2.slice_plan(c, mcf.default_hidden(c), hc_full, 2, 3, s1, s1)
+        if slices != 1:
+            raise SystemExit(f"kernels: K2 plans {slices} slices at C={c}, {s1}x{s1}, not one")
+        ref = k2.macow_unit_inverse_plain(y, h, weights, *an)
+        for g in k2_clusters(c, hc_full, s1):
+            check("macow_unit_inverse", f"K2 one slice C={c} {s1}x{s1} hc={hc_full} G={g}",
+                  k2.macow_unit_inverse(y, h, weights, *an, cluster=g), ref)
+        g = k2_plan(c, hc_full, s1)
+        row = timed("macow_unit_inverse", K2_KERNEL,
+                    f"K2 one slice B={b} C={c} {s1}x{s1} hc={hc_full} G={g} (plan)",
+                    lambda: k2.macow_unit_inverse(y, h, weights, *an),
+                    lambda: k2.macow_unit_inverse_plain(y, h, weights, *an),
+                    *k2_work(b, s1, c, hc_full))
+        report["macow_unit_inverse"]["one_slice"].append(dict(c=c, size=s1, cluster=g, **row))
 
     # the sweeps over G at B=8, hc=128
     report["mcf_inverse"]["sweep"] = sweep_k1(device, log, card, sweep_levels, b, s, hc_full)
@@ -494,6 +535,143 @@ def phase_cross_check(device, spec, params, b=BATCH):
             f"{err:.3g} (tolerance {tol}); video range [{ref.min().item():.3f}, {ref.max().item():.3f}]")
         if not err <= tol:
             raise SystemExit(f"cross-check: {backend} disagrees with scan: {err}")
+
+
+# the flow variants the configs expose, each on one registry model at full
+# width on STEPS_PER_LEVEL MaCowSteps per level: (leg, registry model,
+# architecture keys, FlowSpec fields no config key sets).  The attention leg
+# runs at flow_mid_channels_factor 8 (hidden 256), not iper_128's 64: at
+# hidden 2048 one attention NICE block alone holds ~0.5 G params.
+VARIANT_LEGS = (
+    ("plants_128-aug", "plants_128",
+     dict(augmented_input=True, augment_channels=32, scale_augmentation=True,
+          shift_augmentation=True, condition_nice=True, use1x1=True), dict(cond_conv=True)),
+    ("iper_128-stack-down", "iper_128",
+     dict(multistack=True, levels=[[1, 1, 1, 1], [1, 1, 1, 1]], factors=[16, 16],
+          reshape="down", flow_mid_channels_factor=64), {}),
+    ("iper_128-attn", "iper_128",
+     dict(attention=True, flow_attn_heads=4, ssize=8, flow_mid_channels_factor=8),
+     dict(cond_conv=True)),
+)
+
+
+def variant_spec(entry, arch, flow_fields):
+    """The registry entry's spec with the variant's architecture keys, f32
+    decode, STEPS_PER_LEVEL MaCowSteps per level (every block of a stack)."""
+    spec = registry.build_specs(entry, arch_overrides=arch)
+    flow = spec.flow
+    if transformer.is_stack(flow):
+        flow = replace(flow, levels=tuple(tuple(min(STEPS_PER_LEVEL, n) for n in block)
+                                          for block in flow.levels))
+    else:
+        flow = replace(flow, num_steps=tuple(min(STEPS_PER_LEVEL, n) for n in flow.num_steps),
+                       **flow_fields)
+    return replace(spec, flow=flow,
+                   first_stage=replace(spec.first_stage, decode_dtype="f32")).validate()
+
+
+def macow_steps(flow):
+    """MaCowSteps of a flow spec (every block of a stack)."""
+    if transformer.is_stack(flow):
+        return sum(sum(block) for block in flow.levels)
+    return sum(flow.num_steps)
+
+
+def phase_variants(device, card, legs=VARIANT_LEGS, b=BATCH):
+    """Each leg: params from JAX's init at seed 0 drawn on the card, flow output
+    gains CROSS_GAIN; one fixed z sampled on 'cuda_unit', 'cuda' and 'scan'
+    (f32 decode), the kernels within CROSS_TOL of the plain path, with the
+    launch counters zeroed before and read after each call (K2 4 per
+    MaCowStep on 'cuda_unit', K1 16 on 'cuda'); reverse(forward(x)) back to
+    x on 'cuda_unit' within TRAIN_TOL; on an augmented leg one
+    make_train_step step with a finite loss and non-zero gradients of
+    scale_augment and shift_augment."""
+    t_phase = time.perf_counter()
+    out = {}
+    for leg, model, arch, flow_fields in legs:
+        t_leg = time.perf_counter()
+        entry = registry.MODELS[model]
+        spec = variant_spec(entry, arch, flow_fields)
+        params = second_stage.init(prng.prng_key(0), spec, device)
+        params["flow"] = synth.set_flow_output_gains(params["flow"], CROSS_GAIN)
+        torch.cuda.synchronize()
+        n_flow = sum(t.numel() for t in train_ss.leaves(params["flow"]))
+        steps = macow_steps(spec.flow)
+        init_s = time.perf_counter() - t_leg
+        (batch, _), = make_requests(device, 1, b, spec, seed=3000)
+        z_shape = transformer.reverse_input_shape(spec.flow, b, spec.latent_size,
+                                                  spec.flow_in_channels)
+        z = torch.randn(z_shape, generator=torch.Generator(device=device).manual_seed(3001),
+                        device=device)
+        vids, launches = {}, {}
+        want = {"cuda_unit": (0, 4 * steps), "cuda": (16 * steps, 0), "scan": (0, 0)}
+        for backend in ("cuda_unit", "cuda", "scan"):
+            s = replace(spec, flow=replace(spec.flow, mcf_backend=backend))
+            _zero_counts()
+            vids[backend] = second_stage.forward_sample(params, s, batch, z=z)
+            torch.cuda.synchronize()
+            launches[backend] = _counts()
+            if launches[backend] != want[backend]:
+                raise SystemExit(f"variants: {leg} on '{backend}': K1/K2 launches "
+                                 f"{launches[backend]}, want {want[backend]}")
+        ref = vids["scan"]
+        if not bool(torch.isfinite(ref).all()):
+            raise SystemExit(f"variants: {leg}: the plain video is not finite")
+        errs = {k: (vids[k] - ref).abs().max().item() for k in ("cuda_unit", "cuda")}
+        if not all(e <= CROSS_TOL for e in errs.values()):
+            raise SystemExit(f"variants: {leg}: a kernel path disagrees with scan: {errs}")
+        # reverse(forward(x)) on 'cuda_unit'
+        gen = torch.Generator(device=device).manual_seed(3002)
+        x = torch.randn((b, spec.latent_size, spec.latent_size, spec.flow_in_channels),
+                        generator=gen, device=device)
+        unit_spec = replace(spec.flow, mcf_backend="cuda_unit")
+        with torch.no_grad():
+            cond = second_stage.embed_cond(params, spec, batch["images"][:, 0], batch["poke"])
+            zz, _ = transformer.forward(params["flow"], unit_spec, x, cond)
+            _zero_counts()
+            back = transformer.reverse(params["flow"], unit_spec, zz, cond)
+            torch.cuda.synchronize()
+        rt_launches = _counts()
+        rt_err = (back - x).abs().max().item()
+        if not rt_err <= TRAIN_TOL or rt_launches != (0, 4 * steps):
+            raise SystemExit(f"variants: {leg}: reverse(forward(x)) off by {rt_err}, "
+                             f"K1/K2 launches {rt_launches}")
+        row = {"macow_steps": steps, "flow_params": n_flow, "init_s": init_s,
+               "launches": {k: {"mcf_inverse": v[0], "macow_unit_inverse": v[1]}
+                            for k, v in launches.items()},
+               "max_abs_err": errs, "roundtrip_err": rt_err,
+               "roundtrip_launches": {"mcf_inverse": rt_launches[0],
+                                      "macow_unit_inverse": rt_launches[1]}}
+        if spec.augment_channels:
+            trainable, frozen = train_ss.split_params(params)
+            step = train_ss.make_train_step(spec, frozen, train_ss.make_optimizer(1e-3))
+            state = train_ss.init_state(trainable, step.optimizer)
+            _zero_counts()
+            _, _, grads = step.grads_of(state.params, batch, prng.prng_key(7))
+            state, metrics = step(state, batch, prng.prng_key(7))
+            torch.cuda.synchronize()
+            leaves = train_ss.float_leaves(trainable)
+            gnorm = {k: next(g for p, g in zip(leaves, grads) if p is trainable[k]).norm().item()
+                     for k in ("scale_augment", "shift_augment")}
+            loss = float(metrics["flow_loss"])
+            row["train"] = {"flow_loss": loss, "grad_norm": gnorm, "launches": list(_counts())}
+            if not np.isfinite(loss) or not all(g > 0 and np.isfinite(g) for g in gnorm.values()) \
+                    or _counts() != (0, 0):
+                raise SystemExit(f"variants: {leg}: the train step failed: {row['train']}")
+        row["s"] = time.perf_counter() - t_leg
+        out[leg] = row
+        log(f"variants [{card}]: {leg}: {steps} MaCowSteps, {n_flow / 1e9:.3f} G flow params "
+            f"(init {init_s:.1f} s); K1/K2 launches {launches}; max |cuda_unit - scan| "
+            f"{errs['cuda_unit']:.3g}, |cuda - scan| {errs['cuda']:.3g} (tolerance {CROSS_TOL}); "
+            f"reverse(forward(x)) off by {rt_err:.3g}"
+            + (f"; train step flow_loss {row['train']['flow_loss']:.6g}, |grad| of the augment "
+               f"gains {row['train']['grad_norm']}" if "train" in row else "")
+            + f"; {row['s']:.1f} s")
+        del params, vids
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"variants [{card}]: the phase took {out['phase_s']:.1f} s")
+    return out
 
 
 def _start_server(batcher):
@@ -2073,7 +2251,9 @@ def phase_ingest(device, card, entry, params, tmp):
 # ---------------------------------------------------------------------------
 
 DATA_VIDEOS, DATA_FRAMES, DATA_STORED, DATA_GAPS = 4, 30, 256, (5, 10)
-DATA_BATCHES = 4           # loader batches timed per augment setting
+# loader batches timed per augment setting: 2 since PR 16's variants phase
+# (4 in PR 15, 10 before; ~6 s a batch of the GIL-bound loader on a slow host)
+DATA_BATCHES = 2
 AE_STEPS = 4               # timed encoder steps, after one warm-up step
 AE_BATCH = 16              # configs/img_encoder.yaml, configs/poke_encoder.yaml
 ENC_TOL = 2e-4             # the card's encoder step against the CPU's, relative to 1 + max|ref|
@@ -2758,6 +2938,7 @@ def main():
         f"{res['latency_s'][0] * 1e3:.1f} ms, then {', '.join(f'{x * 1e3:.1f}' for x in steady)} ms; "
         f"{BATCH / mean_s:.2f} videos/s; peak memory {peak / 2**30:.2f} GiB")
     phase_cross_check(device, spec, params)
+    variants = phase_variants(device, card)
     overhead = op_overhead(device, log, card)
     serve = phase_serve(card, spec, params, steady)
     phase_serve_check(device, spec, params)
@@ -2818,18 +2999,25 @@ def main():
              parallel_train_step_launches=[leg["launches"][name]
                                            for r in parallel["gloo"]["reports"]
                                            for leg in r["ok"] + [r["fsdp"]]],
+             variant_launches={leg: {backend: n[name] for backend, n in v["launches"].items()}
+                               for leg, v in variants.items() if leg != "phase_s"},
+             variant_roundtrip_launches={leg: v["roundtrip_launches"][name]
+                                         for leg, v in variants.items() if leg != "phase_s"},
              **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by")},
              library_ms=None)
         for name, source, replaces in (
-            ("mcf_inverse", "mcf_inverse", "ipoke_tpu/ops/pallas/mcf_inverse.py:33"),
-            ("macow_unit_inverse", "mcf_unit_inverse", "ipoke_tpu/ops/pallas/mcf_unit_inverse.py:44"))
+            ("mcf_inverse", "mcf_inverse", "ipoke_tpu/ops/pallas/mcf_inverse.py:79"),
+            ("macow_unit_inverse", "mcf_unit_inverse", "ipoke_tpu/ops/pallas/mcf_unit_inverse.py:172"))
     ]
-    for r in rows:   # each kernel's G at level 0
+    for r in rows:   # each kernel's G at level 0; K2's one-slice shapes
         r["cluster"] = kernels[r["name"]]["cluster"]
+        if "one_slice" in kernels[r["name"]]:
+            r["one_slice"] = kernels[r["name"]]["one_slice"]
     if any(r["launches"] == 0 for r in rows):
         raise SystemExit(f"a kernel of the path never launched: {rows}")
     log(f"smoke: every phase held, {time.perf_counter() - t_run:.1f} s from the build's start")
+    print(json.dumps({"variants": variants}, default=float), flush=True)
     print(json.dumps({"parallel": parallel}, default=float), flush=True)
     print(json.dumps({"ingest": ingest}, default=float), flush=True)
     print(json.dumps({"prep": prep}, default=float), flush=True)

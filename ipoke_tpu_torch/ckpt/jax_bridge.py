@@ -12,7 +12,14 @@
 * the MaCowSteps of a level, stacked on a leading axis in JAX, become a list;
 * int permutation buffers become ``torch.long``;
 * what the port does not use is dropped: the decoder half of the tower
-  wrappers and the spectral-norm vectors ``u``.
+  wrappers and the spectral-norm vectors ``u`` (a conv-LU's ``u``, its upper
+  factor, stays);
+* a MultiscaleStack flow (``{"blocks", "h_transforms"}``) bridges block by
+  block; an ``up`` stack's h transforms are transpose convs, told by the
+  midpoint block holding fewer channels than the first;
+* attention leaves keep JAX's layouts (projections ``(in, out)``,
+  ``pos_emb`` and the layer norm's affine (H, W, C)); ``scale_augment`` and
+  ``shift_augment`` are carried as they are.
 
 A component missing from the tree is missing from the result, so a training
 checkpoint's trainable subtree bridges too.  Stage-1 training trees keep
@@ -37,6 +44,7 @@ from ipoke_tpu_torch.ckpt.io import load
 from ipoke_tpu_torch.nn import core
 
 KERNELS = ("w", "v")
+AUGMENT_KEYS = ("scale_augment", "shift_augment")
 
 
 def _unstack(tree, i):
@@ -59,7 +67,7 @@ def _convert(tree, device, transposed=False, keep_u=False):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k == "u" and not keep_u:
+            if k == "u" and not keep_u and "log_s" not in tree:   # conv-LU's u stays
                 continue
             if k in KERNELS and not isinstance(v, (dict, list)) and np.ndim(v) in (4, 5):
                 w = torch.from_numpy(np.array(v, dtype=np.float32))
@@ -82,9 +90,29 @@ def _tree_of(tree):
     return tree
 
 
+def _block_channels(block):
+    steps = block["levels"][0]["steps"]
+    steps = steps[0] if isinstance(steps, list) else steps   # the port's list, JAX's stack
+    return np.shape(steps["actnorm1"]["log_scale"])[-1]
+
+
+def _stack_grows(blocks):
+    """An ``up`` stack: depth-to-space before the midpoint block leaves it
+    fewer channels than the first block."""
+    return _block_channels(blocks[len(blocks) // 2]) < _block_channels(blocks[0])
+
+
 def bridge_flow(tree, device=None):
-    """The JAX multiscale flow tree ({'levels': [...]}) -> the port's."""
+    """The JAX flow tree ({'levels': [...]}, or a stack's {'blocks': [...],
+    'h_transforms': [...]}) -> the port's."""
     device = resolve_device(device)
+    if "blocks" in tree:
+        out = {"blocks": [bridge_flow(b, device) for b in tree["blocks"]]}
+        if "h_transforms" in tree:
+            grows = _stack_grows(tree["blocks"])
+            out["h_transforms"] = [_convert(t, device, transposed=grows)
+                                   for t in tree["h_transforms"]]
+        return out
     levels = []
     for level in tree["levels"]:
         steps = level["steps"]
@@ -155,6 +183,9 @@ def bridge_components(tree, grown=(), device=None):
     for name in ("conv_adapt_poke_emb", "conv_adapt_cond"):
         if name in tree:
             out[name] = _convert(tree[name], device, transposed=name in grown)
+    for name in AUGMENT_KEYS:
+        if name in tree:
+            out[name] = _convert(tree[name], device)
     return out
 
 
@@ -186,6 +217,12 @@ def _stack(trees):
 
 
 def unbridge_flow(flow):
+    if "blocks" in flow:
+        out = {"blocks": [unbridge_flow(b) for b in flow["blocks"]]}
+        if "h_transforms" in flow:
+            grows = _stack_grows(flow["blocks"])
+            out["h_transforms"] = [_export(t, transposed=grows) for t in flow["h_transforms"]]
+        return out
     return {"levels": [{"steps": _stack([_export(s) for s in level["steps"]]),
                         "prior": _export(level["prior"]),
                         "shuffle": _export(level["shuffle"])} for level in flow["levels"]]}
@@ -217,6 +254,9 @@ def unbridge_second_stage(params, spec):
     for name, grows in _adapters(spec):
         if name in params:
             out[name] = _export(params[name], transposed=grows)
+    for name in AUGMENT_KEYS:
+        if name in params:
+            out[name] = _export(params[name])
     return out
 
 

@@ -20,9 +20,11 @@ converted here is bitwise the JAX package's.
 
 The ``export_*`` functions are the inverses: they write a reference-shaped
 state_dict from a tree of that layout and document the key schema.  The
-flow's variants (the attention NICE coupling, ``cond_conv_block``, MaCow v1,
-the fully connected flow) are not ported: a state_dict that holds their keys
-raises ``NotImplementedError``.
+attention NICE coupling and the ``cond_conv_block`` of a MaCowUnit convert
+as in JAX (NIN projections ``W`` as stored, pos_emb and the LayerNorm's
+affine CHW -> HWC).  As in JAX, no converter reads a multistack flow or a
+conv-LU 1x1 conv.  The legacy flows (MaCow v1, the fully connected flow) are
+not ported: a state_dict that holds their keys raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch
 
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
 
-VARIANTS = "the flow variants are not ported yet (ROADMAP.md queue 1 item 7)"
+VARIANTS = ("the legacy flows (MaCow v1, the fully connected flow) are not ported yet "
+            "(ROADMAP.md queue 1 item 7.3)")
 
 
 def _arr(x):
@@ -128,31 +131,63 @@ def group_norm_p(sd, prefix):
 # ---------------------------------------------------------------------------
 
 def _mcf(sd, prefix):
+    if f"{prefix}.net.masked_conv.conv.weight_v" in sd:
+        raise NotImplementedError(
+            f"{prefix}.net.masked_conv.conv.weight_v: a MaCow v1 MCF; {VARIANTS}")
     return {"net": {"shift_conv": plain_conv(sd, f"{prefix}.net.shift_conv"),
                     "conv1x1": wn_conv(sd, f"{prefix}.net.conv1x1.conv")}}
 
 
+def _gated_conv(sd, prefix):
+    """modules.GatedConv2d: plain weight/bias convs."""
+    p = {"conv1": plain_conv(sd, f"{prefix}.conv1"), "conv2": plain_conv(sd, f"{prefix}.conv2")}
+    for name in ("conv_sc", "cond_conv"):
+        if f"{prefix}.{name}.weight" in sd:
+            p[name] = plain_conv(sd, f"{prefix}.{name}")
+    return p
+
+
+def _chw_to_hwc(t):
+    return _arr(np.transpose(np.asarray(t), (1, 2, 0)))
+
+
+def _attn_block(sd, prefix):
+    """modules.BasicConvAttnBlock: the gated resnet, the NIN-projection
+    attention, LayerNorm((C, H, W))'s affine as (H, W, C)."""
+    return {
+        "gated": _gated_conv(sd, f"{prefix}.gated_resnet"),
+        "attn": {f"proj{i}": {"w": _arr(sd[f"{prefix}.attn.proj_{i}.W"]),
+                              "b": _arr(sd[f"{prefix}.attn.proj_{i}.b"])} for i in (1, 2)},
+        "ln": {"gamma": _chw_to_hwc(sd[f"{prefix}.norm.weight"]),
+               "beta": _chw_to_hwc(sd[f"{prefix}.norm.bias"])},
+    }
+
+
 def _nice(sd, prefix):
-    if f"{prefix}.net.pos_emb" in sd:
-        raise NotImplementedError(
-            f"{prefix}.net.pos_emb: the attention NICE coupling; {VARIANTS}")
+    if f"{prefix}.net.pos_emb" in sd:   # the attention NICEConvBlock
+        return {"net": {"in_resnet": _gated_conv(sd, f"{prefix}.net.in_resnet"),
+                        "pos_emb": _chw_to_hwc(sd[f"{prefix}.net.pos_emb"]),
+                        "conv1": _attn_block(sd, f"{prefix}.net.conv1"),
+                        "conv2": _attn_block(sd, f"{prefix}.net.conv2"),
+                        "conv3": wn_conv(sd, f"{prefix}.net.conv3.conv")}}
     return {"net": {"conv1": plain_conv(sd, f"{prefix}.net.conv1"),
                     "conv2": plain_conv(sd, f"{prefix}.net.conv2"),
                     "conv3": wn_conv(sd, f"{prefix}.net.conv3.conv")}}
 
 
 def _macow_unit(sd, prefix):
-    if f"{prefix}.cond_conv_block.conv1.weight" in sd:
-        raise NotImplementedError(
-            f"{prefix}.cond_conv_block.conv1.weight: a conditioned MaCowUnit; {VARIANTS}")
-    return {
+    p = {}
+    if f"{prefix}.cond_conv_block.conv1.weight" in sd:   # a conditioned MaCowUnit
+        p["cond_conv_block"] = _gated_conv(sd, f"{prefix}.cond_conv_block")
+    p.update({
         "conv1": _mcf(sd, f"{prefix}.conv1"),
         "conv2": _mcf(sd, f"{prefix}.conv2"),
         "actnorm1": actnorm(sd, f"{prefix}.actnorm1"),
         "conv3": _mcf(sd, f"{prefix}.conv3"),
         "conv4": _mcf(sd, f"{prefix}.conv4"),
         "actnorm2": actnorm(sd, f"{prefix}.actnorm2"),
-    }
+    })
+    return p
 
 
 def _macow_step(sd, prefix):
@@ -189,6 +224,8 @@ def stack_step_params(steps):
 def convert_flow(sd: Dict[str, np.ndarray], spec, prefix="flow.flow"):
     """MultiScaleInternal state_dict -> the stacked-level flow tree;
     ``spec``: a FlowSpec (its ``num_steps``)."""
+    if any(k.startswith(f"{prefix}.sub_layers.") for k in sd):
+        raise NotImplementedError(f"{prefix}.sub_layers.*: a fully connected flow; {VARIANTS}")
     levels = []
     for li, n_steps in enumerate(spec.num_steps):
         steps = [_macow_step(sd, f"{prefix}.layers.{li}.{si}") for si in range(n_steps)]
@@ -424,13 +461,41 @@ def _export_mcf(p, prefix, sd):
     _export_wn(p["net"]["conv1x1"], f"{prefix}.net.conv1x1.conv", sd)
 
 
+def _export_gated(p, prefix, sd):
+    for name in ("conv1", "conv2", "conv_sc", "cond_conv"):
+        if name in p:
+            _export_conv(p[name], f"{prefix}.{name}", sd)
+
+
+def _hwc_to_chw(t):
+    return np.transpose(np.asarray(t), (2, 0, 1))
+
+
+def _export_attn_block(p, prefix, sd):
+    _export_gated(p["gated"], f"{prefix}.gated_resnet", sd)
+    for i in (1, 2):
+        sd[f"{prefix}.attn.proj_{i}.W"] = np.asarray(p["attn"][f"proj{i}"]["w"])
+        sd[f"{prefix}.attn.proj_{i}.b"] = np.asarray(p["attn"][f"proj{i}"]["b"])
+    sd[f"{prefix}.norm.weight"] = _hwc_to_chw(p["ln"]["gamma"])
+    sd[f"{prefix}.norm.bias"] = _hwc_to_chw(p["ln"]["beta"])
+
+
 def _export_nice(p, prefix, sd):
-    _export_conv(p["net"]["conv1"], f"{prefix}.net.conv1", sd)
-    _export_conv(p["net"]["conv2"], f"{prefix}.net.conv2", sd)
-    _export_wn(p["net"]["conv3"], f"{prefix}.net.conv3.conv", sd)
+    net = p["net"]
+    if "in_resnet" in net:
+        _export_gated(net["in_resnet"], f"{prefix}.net.in_resnet", sd)
+        sd[f"{prefix}.net.pos_emb"] = _hwc_to_chw(net["pos_emb"])
+        _export_attn_block(net["conv1"], f"{prefix}.net.conv1", sd)
+        _export_attn_block(net["conv2"], f"{prefix}.net.conv2", sd)
+    else:
+        _export_conv(net["conv1"], f"{prefix}.net.conv1", sd)
+        _export_conv(net["conv2"], f"{prefix}.net.conv2", sd)
+    _export_wn(net["conv3"], f"{prefix}.net.conv3.conv", sd)
 
 
 def _export_unit(p, prefix, sd):
+    if "cond_conv_block" in p:
+        _export_gated(p["cond_conv_block"], f"{prefix}.cond_conv_block", sd)
     for name in ("conv1", "conv2", "conv3", "conv4"):
         _export_mcf(p[name], f"{prefix}.{name}", sd)
     _export_actnorm(p["actnorm1"], f"{prefix}.actnorm1", sd)

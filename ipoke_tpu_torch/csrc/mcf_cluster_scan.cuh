@@ -31,7 +31,7 @@
 //   * a double-buffered block of partial (mu, logs) pairs, P x C float2;
 //   * the weight slices, one MCF each: the w_shift rows J_g (tap-major), the
 //     w1 columns of J_g and of its h channels, and all of b1.  K1 holds one
-//     slice, K2 a ring of two (one MCF ahead).  They are staged with 4-byte
+//     slice, K2 a ring of two (one MCF ahead), or one where two do not fit.  They are staged with 4-byte
 //     cp.async (any alignment, any layout), so no weight is read from global
 //     memory inside the line loop.
 //
@@ -156,7 +156,7 @@ inline bool make_cluster_dims(int H, int W, int C, int hid, int hc, int kseq, in
 
 // Float offsets of the regions of one rank's shared memory, each start
 // rounded up to 16 bytes: two latents, act_fn(h), activations, partials
-// (2 buffers), `slices` weight slices (K1 1, K2 2).
+// (2 buffers), `slices` weight slices (K1 1, K2 2 or 1).
 struct SmemLayout {
   int lat1, hact, act, part, ring, end;
 };

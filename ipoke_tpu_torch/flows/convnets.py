@@ -4,13 +4,14 @@
   shifted conv   causal conv, orders A-D
   MCF block      shifted conv -> [cat h] -> act -> 1x1 wn conv
   NICE block     3x3 -> act -> 1x1 -> [cat h] -> act -> 3x3 wn conv
+  attention NICE gated conv to hidden -> conv-attention block -> act
+                 -> conv-attention block -> [cat h] -> act -> 3x3 wn conv
+                 (``flows/attention``)
 
 A NICE block whose convs are split over a tensor-parallel group (the rule
 ``parallel/sharding.flow_param_shardings``: conv1 by its output channels,
 conv2 and conv3 by their input channels) runs split inside
-``model_parallel(group)``.
-
-The attention NICE block waits in ROADMAP queue 1.
+``model_parallel(group)``; the attention block is not split.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from ipoke_tpu_torch.flows import attention as attn
 from ipoke_tpu_torch.nn import core
 from ipoke_tpu_torch.nn.core import activation, conv2d
 from ipoke_tpu_torch.parallel import distributed
@@ -49,11 +51,22 @@ def init_mcf_block(key, c_in, c_out, kernel_size, hidden, h_channels=None, devic
             "conv1x1": init_wn_conv(k2, 1, 1, hidden + (h_channels or 0), c_out, device=device)}
 
 
-def init_nice_conv_block(key, c_in, c_out, hidden, device="cpu"):
-    k1, k2, k3, _ = prng.split(key, 4)
+def init_nice_conv_block(key, c_in, c_out, hidden, h_channels=0, attention=False, heads=4,
+                         spatial_size=8, device="cpu"):
+    """conv3 reads hidden + ``h_channels`` (``condition_nice``).  The
+    attention block draws ``in_resnet`` and ``conv1`` both from the first
+    subkey, as JAX does."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    conv3 = init_wn_conv(k3, 3, 3, hidden + h_channels, c_out, device=device)
+    if attention:
+        return {"in_resnet": attn.init_gated_conv(k1, c_in, dim_out=hidden, device=device),
+                "pos_emb": prng.normal(k4, (spatial_size, spatial_size, hidden), device),
+                "conv1": attn.init_conv_attn_block(k1, hidden, spatial_size, device),
+                "conv2": attn.init_conv_attn_block(k2, hidden, spatial_size, device),
+                "conv3": conv3}
     return {"conv1": _torch_default_conv(k1, (3, 3, c_in, hidden), device),
             "conv2": _torch_default_conv(k2, (1, 1, hidden, hidden), device),
-            "conv3": init_wn_conv(k3, 3, 3, hidden, c_out, device=device)}
+            "conv3": conv3}
 
 
 def wn_conv_apply(p, x, padding=0):
@@ -126,11 +139,15 @@ def _nice_split(p, x, h, f, group):
     return distributed.reduce_from(conv2d(mine, w, None, padding=1), group) + b.to(out.dtype)
 
 
-def nice_conv_block_apply(p, x, h=None, act="elu"):
-    if "in_resnet" in p:
-        raise NotImplementedError(
-            "attention NICE blocks are not ported yet (ROADMAP.md queue 1)")
+def nice_conv_block_apply(p, x, h=None, act="elu", heads=4):
     f = activation(act)
+    if "in_resnet" in p:   # the attention block
+        out = attn.gated_conv_apply(p["in_resnet"], x)
+        out = f(attn.conv_attn_block_apply(p["conv1"], out, p["pos_emb"], heads))
+        out = attn.conv_attn_block_apply(p["conv2"], out, p["pos_emb"], heads)
+        if h is not None:
+            out = torch.cat([out, h.to(out.dtype)], dim=-1)
+        return wn_conv_apply(p["conv3"], f(out), padding=1)
     if p["conv1"]["w"].shape[0] != p["conv2"]["w"].shape[0]:   # conv1 split by its outputs
         group = _MODEL_GROUP.get()
         if group is None:

@@ -5,6 +5,12 @@ Params are the JAX package's trees with one change: a level's MaCowSteps are
 a list (``levels[i]["steps"][s]``) instead of one tree stacked on a leading
 step axis.  ``forward`` returns ``(y, logdet[B])``; ``inverse`` is exact.
 The ``init_*`` functions draw JAX's params from JAX's key.
+
+Spec options, as in JAX: ``cond_conv`` puts a gated conv on h before each
+MaCowUnit (``cond_conv_block``; K2 then reads the gated h); ``condition_nice``
+feeds h to every NICE coupling; ``attention`` makes the couplings' subnets
+attention blocks; ``use_1x1`` makes the priors' and the levels'
+permutations conv-LU 1x1 convs (the steps' ``conv1x1`` stays a shuffle).
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import List, Tuple
 
 import torch
 
-from ipoke_tpu_torch.flows import actnorm, mcf, nice, permute
+from ipoke_tpu_torch.flows import actnorm, attention, mcf, nice, permute
 from ipoke_tpu_torch.flows.nice import nice_channels
 from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.ops.cuda.mcf_unit_inverse import macow_unit_inverse_cuda
@@ -36,20 +42,18 @@ class FlowSpec:
     activation: str = "elu"
     use_1x1: bool = False
     condition_nice: bool = False
-    attention: bool = False
-    cond_conv: bool = False
+    attention: bool = False      # attention NICE subnets
+    heads: int = 4               # their attention heads
+    spatial_size: int = 8        # their positional embedding's and layer norm's H = W
+    cond_conv: bool = False      # a gated conv on h before each MaCowUnit
     # 'scan': plain loop; 'cuda': kernel K1 per MCF; 'cuda_unit': kernel K2
-    # per MaCowUnit (the JAX 'scan' / 'pallas' / 'pallas_unit')
+    # per MaCowUnit (the JAX 'scan' / 'pallas' / 'pallas_unit'); a
+    # non-affine transform takes the plain loop on each, as in JAX
     mcf_backend: str = "scan"
 
     def __post_init__(self):
         get_transform(self.transform)
         get_transform(self.prior_transform)
-        for opt in ("use_1x1", "condition_nice", "attention", "cond_conv"):
-            if getattr(self, opt):
-                raise NotImplementedError(
-                    f"FlowSpec.{opt} is not ported yet (ROADMAP.md queue 1, "
-                    f"spec options the registry does not use)")
         if self.mcf_backend not in MCF_BACKENDS:
             raise ValueError(f"mcf_backend {self.mcf_backend!r} not in {MCF_BACKENDS}")
 
@@ -68,15 +72,27 @@ class FlowSpec:
 def init_macow_unit(key, c, spec: FlowSpec, device="cpu"):
     ks = prng.split(key, 7)
     kh, kw = spec.kernel_size
-    kw_ = dict(h_channels=spec.h_channels or None, transform=spec.transform, device=device)
-    return {
+    hc = spec.h_channels or None
+    kw_ = dict(h_channels=hc, transform=spec.transform, device=device)
+    p = {}
+    if spec.cond_conv and hc:
+        p["cond_conv_block"] = attention.init_gated_conv(ks[6], hc, device=device)
+    p.update({
         "conv1": mcf.init_mcf(ks[0], c, (kh, kw), **kw_),
         "conv2": mcf.init_mcf(ks[1], c, (kh, kw), **kw_),
         "actnorm1": actnorm.init_actnorm(ks[2], c, device),
         "conv3": mcf.init_mcf(ks[3], c, (kw, kh), **kw_),
         "conv4": mcf.init_mcf(ks[4], c, (kw, kh), **kw_),
         "actnorm2": actnorm.init_actnorm(ks[5], c, device),
-    }
+    })
+    return p
+
+
+def _unit_h(p, h):
+    """h through the unit's gated conv, where it has one (``cond_conv``)."""
+    if "cond_conv_block" in p and h is not None:
+        return attention.gated_conv_apply(p["cond_conv_block"], h)
+    return h
 
 
 def _mcf_kw(spec):
@@ -85,6 +101,7 @@ def _mcf_kw(spec):
 
 def macow_unit_forward(p, x, h, spec: FlowSpec):
     kw = _mcf_kw(spec)
+    h = _unit_h(p, h)
     out, ld = mcf.forward(p["conv1"], x, h=h, order="A", **kw)
     out, l2 = mcf.forward(p["conv2"], out, h=h, order="B", **kw)
     out, l3 = actnorm.forward(p["actnorm1"], out)
@@ -95,9 +112,13 @@ def macow_unit_forward(p, x, h, spec: FlowSpec):
 
 
 def macow_unit_inverse(p, y, h, spec: FlowSpec):
-    if spec.mcf_backend == "cuda_unit":
+    """K2 on ``'cuda_unit'`` for the affine transform; the MCFs one by one
+    otherwise, a non-affine transform on the plain loop (JAX's route)."""
+    h = _unit_h(p, h)
+    if spec.mcf_backend == "cuda_unit" and spec.transform == "affine":
         return macow_unit_inverse_cuda(p, y, h, spec)
-    kw = dict(_mcf_kw(spec), backend=spec.mcf_backend)
+    backend = "scan" if spec.mcf_backend == "cuda_unit" else spec.mcf_backend
+    kw = dict(_mcf_kw(spec), backend=backend)
     out = actnorm.inverse(p["actnorm2"], y)
     out = mcf.inverse(p["conv4"], out, h=h, order="D", **kw)
     out = mcf.inverse(p["conv3"], out, h=h, order="C", **kw)
@@ -119,13 +140,19 @@ _COUPLINGS = {
 }
 
 
+def _nice_init_kw(spec: FlowSpec):
+    return dict(hidden=spec.hidden_channels,
+                h_channels=spec.h_channels if spec.condition_nice else 0,
+                attention=spec.attention, heads=spec.heads, spatial_size=spec.spatial_size)
+
+
 def init_macow_step(key, c, spec: FlowSpec, device="cpu"):
     ks = prng.split(key, 10)
 
     def coupling(k, name):
         split, order = _COUPLINGS[name]
-        return nice.init_nice(k, c, hidden=spec.hidden_channels, split_type=split, order=order,
-                              transform=spec.transform, device=device)
+        return nice.init_nice(k, c, split_type=split, order=order, transform=spec.transform,
+                              device=device, **_nice_init_kw(spec))
 
     return {
         "actnorm1": actnorm.init_actnorm(ks[0], c, device),
@@ -140,10 +167,11 @@ def init_macow_step(key, c, spec: FlowSpec, device="cpu"):
     }
 
 
-def _nice(p, x, name, spec, inverse):
+def _nice(p, x, h, name, spec, inverse):
     split, order = _COUPLINGS[name]
-    kw = dict(in_channels=x.shape[-1], factor=2, split_type=split, order=order,
-              transform=spec.transform, alpha=spec.alpha, act=spec.activation)
+    kw = dict(h=h if spec.condition_nice else None, in_channels=x.shape[-1], factor=2,
+              split_type=split, order=order, transform=spec.transform, alpha=spec.alpha,
+              act=spec.activation, heads=spec.heads)
     if inverse:
         return nice.inverse(p[name], x, **kw)
     return nice.forward(p[name], x, **kw)
@@ -157,7 +185,7 @@ def macow_step_forward(p, x, h, spec: FlowSpec):
         out, l = macow_unit_forward(unit, out, h, spec)
         ld = ld + l
     for name in ("coupling1_up", "coupling1_dn"):
-        out, l = _nice(p, out, name, spec, inverse=False)
+        out, l = _nice(p, out, h, name, spec, inverse=False)
         ld = ld + l
     out, l = actnorm.forward(p["actnorm2"], out)
     ld = ld + l
@@ -165,19 +193,19 @@ def macow_step_forward(p, x, h, spec: FlowSpec):
         out, l = macow_unit_forward(unit, out, h, spec)
         ld = ld + l
     for name in ("coupling2_up", "coupling2_dn"):
-        out, l = _nice(p, out, name, spec, inverse=False)
+        out, l = _nice(p, out, h, name, spec, inverse=False)
         ld = ld + l
     return out, ld
 
 
 def macow_step_inverse(p, y, h, spec: FlowSpec):
-    out = _nice(p, y, "coupling2_dn", spec, inverse=True)
-    out = _nice(p, out, "coupling2_up", spec, inverse=True)
+    out = _nice(p, y, h, "coupling2_dn", spec, inverse=True)
+    out = _nice(p, out, h, "coupling2_up", spec, inverse=True)
     for unit in reversed(p["units2"]):
         out = macow_unit_inverse(unit, out, h, spec)
     out = actnorm.inverse(p["actnorm2"], out)
-    out = _nice(p, out, "coupling1_dn", spec, inverse=True)
-    out = _nice(p, out, "coupling1_up", spec, inverse=True)
+    out = _nice(p, out, h, "coupling1_dn", spec, inverse=True)
+    out = _nice(p, out, h, "coupling1_up", spec, inverse=True)
     for unit in reversed(p["units1"]):
         out = macow_unit_inverse(unit, out, h, spec)
     out = permute.shuffle_inverse(p["conv1x1"], out)
@@ -188,28 +216,48 @@ def macow_step_inverse(p, y, h, spec: FlowSpec):
 # MultiScalePrior: permutation -> NICE(cont, up, factor=level factor) -> ActNorm(z2)
 # ---------------------------------------------------------------------------
 
+def _init_perm(key, c, spec: FlowSpec, device):
+    if spec.use_1x1:
+        return permute.init_conv_lu(key, c, device)
+    return permute.init_shuffle(key, c, device)
+
+
+def _perm_fwd(p, x, spec: FlowSpec):
+    if spec.use_1x1:
+        return permute.conv_lu_forward(p, x)
+    return permute.shuffle_forward(p, x)
+
+
+def _perm_inv(p, y, spec: FlowSpec):
+    if spec.use_1x1:
+        return permute.conv_lu_inverse(p, y)
+    return permute.shuffle_inverse(p, y)
+
+
 def init_prior(key, c, level_factor, spec: FlowSpec, device="cpu"):
     k1, k2, k3 = prng.split(key, 3)
     _, z1c, _, _ = nice_channels(c, level_factor, "continuous", "up")
     return {
-        "conv1x1": permute.init_shuffle(k1, c, device),
-        "coupling": nice.init_nice(k2, c, hidden=spec.hidden_channels, split_type="continuous",
-                                   order="up", factor=level_factor,
-                                   transform=spec.prior_transform, device=device),
+        "conv1x1": _init_perm(k1, c, spec, device),
+        "coupling": nice.init_nice(k2, c, split_type="continuous", order="up",
+                                   factor=level_factor, transform=spec.prior_transform,
+                                   device=device, **_nice_init_kw(spec)),
         "actnorm": actnorm.init_actnorm(k3, c - z1c, device),
     }
 
 
-def _prior_kw(c, level_factor, spec):
-    return dict(in_channels=c, factor=level_factor, split_type="continuous", order="up",
-                transform=spec.prior_transform, alpha=spec.alpha, act=spec.activation)
+def _prior_kw(c, h, level_factor, spec):
+    # no ``heads``: JAX's prior couplings run at nice's default of 4 heads
+    return dict(h=h if spec.condition_nice else None, in_channels=c, factor=level_factor,
+                split_type="continuous", order="up", transform=spec.prior_transform,
+                alpha=spec.alpha, act=spec.activation)
 
 
 def prior_forward(p, x, h, level_factor, spec: FlowSpec):
     c = x.shape[-1]
     _, z1c, _, _ = nice_channels(c, level_factor, "continuous", "up")
-    out, ld = permute.shuffle_forward(p["conv1x1"], x)
-    out, l = nice.forward(p["coupling"], out, **_prior_kw(c, level_factor, spec))
+    out, ld = _perm_fwd(p["conv1x1"], x, spec)
+    out, l = nice.forward(p["coupling"], out, **_prior_kw(c, h, level_factor, spec))
     out2, l2 = actnorm.forward(p["actnorm"], out[..., z1c:])
     return torch.cat([out[..., :z1c], out2], dim=-1), ld + l + l2
 
@@ -218,8 +266,8 @@ def prior_inverse(p, y, h, level_factor, spec: FlowSpec):
     c = y.shape[-1]
     _, z1c, _, _ = nice_channels(c, level_factor, "continuous", "up")
     out = torch.cat([y[..., :z1c], actnorm.inverse(p["actnorm"], y[..., z1c:])], dim=-1)
-    out = nice.inverse(p["coupling"], out, **_prior_kw(c, level_factor, spec))
-    return permute.shuffle_inverse(p["conv1x1"], out)
+    out = nice.inverse(p["coupling"], out, **_prior_kw(c, h, level_factor, spec))
+    return _perm_inv(p["conv1x1"], out, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -228,13 +276,13 @@ def prior_inverse(p, y, h, level_factor, spec: FlowSpec):
 
 def init_level(key, i, c, f, n_steps, spec: FlowSpec, device="cpu"):
     """Level ``i``: its steps from ``fold_in(fold_in(key, i), 100 + s)``, the
-    prior from ``.., 1)``, the shuffle from ``.., 2)``, as JAX keys them."""
+    prior from ``.., 1)``, the permutation from ``.., 2)``, as JAX keys them."""
     kk = prng.fold_in(key, i)
     return {
         "steps": [init_macow_step(prng.fold_in(kk, 100 + s), c, spec, device)
                   for s in range(n_steps)],
         "prior": init_prior(prng.fold_in(kk, 1), c, f, spec, device),
-        "shuffle": permute.init_shuffle(prng.fold_in(kk, 2), c, device),
+        "shuffle": _init_perm(prng.fold_in(kk, 2), c, spec, device),
     }
 
 
@@ -254,7 +302,7 @@ def multiscale_forward(p, x, h, spec: FlowSpec):
             ld = ld + l
         out, l = prior_forward(level["prior"], out, h, f, spec)
         ld = ld + l
-        out, l = permute.shuffle_forward(level["shuffle"], out)
+        out, l = _perm_fwd(level["shuffle"], out, spec)
         ld = ld + l
         z2s.append(out[..., c - cs:])
         out = out[..., :c - cs]
@@ -272,7 +320,7 @@ def multiscale_inverse(p, y, h, spec: FlowSpec):
         out = out[..., :c - cs]
     for level, f, z2 in zip(reversed(p["levels"]), reversed(spec.level_factors()), reversed(z2s)):
         out = torch.cat([out, z2], dim=-1)
-        out = permute.shuffle_inverse(level["shuffle"], out)
+        out = _perm_inv(level["shuffle"], out, spec)
         out = prior_inverse(level["prior"], out, h, f, spec)
         for step in reversed(level["steps"]):
             out = macow_step_inverse(step, out, h, spec)

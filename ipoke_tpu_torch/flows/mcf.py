@@ -5,11 +5,15 @@ recurrence along one spatial axis (rows for orders A/B, columns for C/D).
 Backends:
 
   'scan'  the plain PyTorch row loop (``ops/cuda/mcf_inverse.mcf_inverse_plain``),
-          the counterpart of the JAX ``_row_scan_inverse``; orders B/C/D map
-          onto order A by flips and transposes inside it;
+          the counterpart of the JAX ``_row_scan_inverse``, for any
+          transform; orders B/C/D map onto order A by flips and transposes
+          inside it;
   'cuda'  kernel K1 for each MCF (the counterpart of JAX ``'pallas'``), which
           runs every order in its native orientation on z, h and the weights
           as stored: nothing is flipped, transposed or copied on the way.
+
+K1 inverts the affine transform; the others take the plain loop on every
+backend, as in JAX.
 
 The JAX scan hoists the conditioning half of the 1x1 conv out of the loop;
 the port's loop keeps the concatenated form of the kernel.  Both are the same
@@ -45,13 +49,19 @@ def forward(p, x, h=None, order="A", transform="affine", alpha=1.0, act="elu"):
 
 def inverse(p, z, h=None, order="A", transform="affine", alpha=1.0, act="elu",
             backend="scan"):
+    """The MCF inverse on ``backend``.  A non-affine transform takes the
+    plain loop on every backend, before any launch: K1 inverts the affine
+    transform only, and JAX's ``'pallas'`` falls back to its scan for the
+    others (``ipoke_tpu/ops/pallas/mcf_inverse.py``, ``mcf_inverse_pallas``)."""
     get_transform(transform)
+    if backend not in ("scan", "cuda"):
+        raise ValueError(f"mcf backend {backend!r} is not 'scan' or 'cuda'")
     conv1x1 = p["net"]["conv1x1"]
     w1 = weight_norm_materialize(conv1x1["v"], conv1x1["g"])
     w1 = w1.reshape(w1.shape[0], -1)
-    args = (z, h, p["net"]["shift_conv"]["w"], w1, conv1x1["b"], order, alpha, act)
-    if backend == "scan":
-        return mcf_inverse_plain(*args)
-    if backend == "cuda":
-        return mcf_inverse(*args)
-    raise ValueError(f"mcf backend {backend!r} is not 'scan' or 'cuda'")
+    args = (z, h, p["net"]["shift_conv"]["w"], w1, conv1x1["b"], order)
+    if transform != "affine" or backend == "scan":
+        return mcf_inverse_plain(*args, alpha, act, transform)
+    # K1 reads contiguous tensors (a stack's h comes out of its transform strided)
+    return mcf_inverse(z.contiguous(), None if h is None else h.contiguous(), *args[2:],
+                       alpha, act)

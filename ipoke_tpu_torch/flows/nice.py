@@ -31,12 +31,14 @@ def default_hidden(in_channels):
     return min(8 * in_channels, 512)
 
 
-def init_nice(key, in_channels, hidden=None, split_type="continuous", order="up", factor=2,
-              transform="affine", device="cpu"):
+def init_nice(key, in_channels, hidden=None, h_channels=0, split_type="continuous", order="up",
+              factor=2, transform="affine", attention=False, heads=4, spatial_size=8,
+              device="cpu"):
     _, _, net_in, out_base = nice_channels(in_channels, factor, split_type, order)
     net_out = out_base * get_transform(transform).n_params
-    return {"net": convnets.init_nice_conv_block(key, net_in, net_out,
-                                                 hidden or default_hidden(in_channels), device)}
+    return {"net": convnets.init_nice_conv_block(
+        key, net_in, net_out, hidden or default_hidden(in_channels), h_channels=h_channels,
+        attention=attention, heads=heads, spatial_size=spatial_size, device=device)}
 
 
 def _split(x, in_channels, factor, split_type, order):
@@ -54,12 +56,13 @@ def _unsplit(z1, z2, in_channels, factor, split_type, order):
     return torch.stack([z1, z2], dim=-1).flatten(-2)
 
 
-def _couple(p, x, h, in_channels, factor, split_type, order, transform, alpha, act, inverse):
+def _couple(p, x, h, in_channels, factor, split_type, order, transform, alpha, act, heads,
+            inverse):
     T = get_transform(transform)
     in_channels = in_channels or x.shape[-1]
     z1, z2 = _split(x, in_channels, factor, split_type, order)
     z, zp = (z1, z2) if order == "up" else (z2, z1)
-    raw = convnets.nice_conv_block_apply(p["net"], z, h=h, act=act)
+    raw = convnets.nice_conv_block_apply(p["net"], z, h=h, act=act, heads=heads)
     params = T.calc_params(raw, alpha)
     zp, logdet = T.bwd(zp, params) if inverse else T.fwd(zp, params)
     z1, z2 = (z, zp) if order == "up" else (zp, z)
@@ -67,12 +70,12 @@ def _couple(p, x, h, in_channels, factor, split_type, order, transform, alpha, a
 
 
 def forward(p, x, h=None, in_channels=None, factor=2, split_type="continuous",
-            order="up", transform="affine", alpha=1.0, act="elu"):
+            order="up", transform="affine", alpha=1.0, act="elu", heads=4):
     return _couple(p, x, h, in_channels, factor, split_type, order, transform,
-                   alpha, act, inverse=False)
+                   alpha, act, heads, inverse=False)
 
 
 def inverse(p, y, h=None, in_channels=None, factor=2, split_type="continuous",
-            order="up", transform="affine", alpha=1.0, act="elu"):
+            order="up", transform="affine", alpha=1.0, act="elu", heads=4):
     return _couple(p, y, h, in_channels, factor, split_type, order, transform,
-                   alpha, act, inverse=True)[0]
+                   alpha, act, heads, inverse=True)[0]

@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ipoke_tpu_torch import resolve_device
 from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.flows.macow import FlowSpec
+from ipoke_tpu_torch.flows.multistack import StackSpec
 from ipoke_tpu_torch.models import encoders, first_stage, motion_encoder
 from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
@@ -30,7 +31,7 @@ from ipoke_tpu_torch.utils import prng
 
 @dataclass(frozen=True)
 class SecondStageSpec:
-    flow: FlowSpec
+    flow: Union[FlowSpec, StackSpec]    # StackSpec for a ``multistack`` config
     first_stage: FirstStageSpec
     poke_embedder: WrapperSpec
     conditioner: Optional[WrapperSpec]  # None when conditioner.use == False
@@ -95,8 +96,10 @@ class SecondStageSpec:
         arch["flow_in_channels"] = flow_in
         arch["flow_mid_channels"] = int(arch["flow_mid_channels_factor"] * flow_in)
         arch["h_channels"] = poke_spec.nf_max + (cond_spec.nf_max if cond_spec else 0)
+        from_config = (transformer.stack_spec_from_config if arch.get("multistack")
+                       else transformer.spec_from_config)
         return cls(
-            flow=transformer.spec_from_config(arch, mcf_backend=mcf_backend),
+            flow=from_config(arch, mcf_backend=mcf_backend),
             first_stage=first_stage_spec,
             poke_embedder=poke_spec,
             conditioner=cond_spec,
@@ -128,8 +131,6 @@ def init(key, spec: SecondStageSpec, device=None, only=None):
     ``only``: each from its own subkey of ``split(key, 6)``, as JAX draws them,
     on ``device`` (the CUDA card by default)."""
     device = resolve_device(device)
-    if spec.augment_channels:
-        raise NotImplementedError("augmented flow input is not ported yet (ROADMAP.md queue 1)")
     ks = prng.split(key, 6)
     s = spec.first_stage.min_spatial_size
 
@@ -144,6 +145,8 @@ def init(key, spec: SecondStageSpec, device=None, only=None):
         "conditioner": lambda: encoders.init_wrapper(ks[3], spec.conditioner, device),
         "conv_adapt_poke_emb": lambda: adapter(ks[4], spec.poke_embedder),
         "conv_adapt_cond": lambda: adapter(ks[5], spec.conditioner),
+        "scale_augment": lambda: torch.ones(spec.augment_channels, device=device),
+        "shift_augment": lambda: torch.zeros(spec.augment_channels, device=device),
     }
     return {k: make[k]() for k in components(spec) if only is None or k in only}
 
@@ -194,14 +197,32 @@ def encode_first_stage(params, spec: SecondStageSpec, x):
     return motion, mu
 
 
-def forward_density(params, spec: SecondStageSpec, batch):
+def forward_density(params, spec: SecondStageSpec, batch, rng=None, rows=None):
     """Training direction.  batch: {'images': (B,T,S,S,3), 'poke': (B,S,S,2)}.
-    Returns (gaussianized, logdet, cond).  JAX's ``rng`` draws the augmented
-    channels, which are not ported (``init`` raises on them)."""
+    Returns (gaussianized, logdet, cond).
+
+    With ``augmented_input`` the flow's input gains ``augment_channels``
+    channels of N(0, 1) drawn from the JAX key ``rng`` (``prng.normal``, JAX's
+    draw), times ``scale_augment`` plus ``shift_augment``.  ``rows = (first,
+    total)``: ``batch`` holds rows ``first..`` of a batch of ``total``, and
+    takes those rows of the whole batch's draw.  JAX's validation calls it
+    without a key, which fails there; here ``rng=None`` with augment channels
+    raises ``ValueError``."""
     x = batch["images"]
     poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
     cond = embed_cond(params, spec, x[:, 0], poke)
     flow_input, _ = encode_first_stage(params, spec, x)
+    if spec.augment_channels:
+        if rng is None:
+            raise ValueError("forward_density: augmented_input draws its augment channels from "
+                             "a JAX key rng, and none was given (JAX's validation gives none "
+                             "either and fails there)")
+        b = flow_input.shape[0]
+        first, total = rows or (0, b)
+        shape = (total,) + tuple(flow_input.shape[1:-1]) + (spec.augment_channels,)
+        aug = prng.normal(rng, shape, flow_input.device)[first:first + b].to(flow_input.dtype)
+        aug = aug * params["scale_augment"] + params["shift_augment"]
+        flow_input = torch.cat([flow_input, aug], dim=-1)
     out, logdet = transformer.forward(params["flow"], spec.flow, flow_input, cond)
     return out, logdet, cond
 

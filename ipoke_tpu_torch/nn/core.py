@@ -202,3 +202,15 @@ def spectral_normalize(w, u, out_axis=0, eps=1e-12):
     sigma = u @ (w_mat @ v)
     return w / sigma, u.detach()
 
+
+
+def space_to_depth(x, factor=2):
+    """(B,H,W,C) -> (B,H/f,W/f,C*f*f) with the channels c-slowest, then the
+    row and the column offset in the block: torch's ``pixel_unshuffle``
+    order on NCHW, as the JAX package's ``space_to_depth``."""
+    return _nhwc(F.pixel_unshuffle(_nchw(x), factor))
+
+
+def depth_to_space(x, factor=2):
+    """The inverse of :func:`space_to_depth` (torch's ``pixel_shuffle``)."""
+    return _nhwc(F.pixel_shuffle(_nchw(x), factor))

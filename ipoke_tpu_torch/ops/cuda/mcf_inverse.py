@@ -34,13 +34,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.nn.core import activation
 from ipoke_tpu_torch.ops.cuda import _build
 
 ORDERS = ("A", "B", "C", "D")   # conv1..conv4 of a MaCowUnit
 CLUSTER_SIZES = (1, 2, 4, 8)    # portable thread-block cluster sizes on sm_90
 MAX_SMEM_BYTES = 232_448        # shared memory one CTA may use on the H100
-SLICES = 1                      # weight slices K1 keeps in shared memory (K2: 2)
+SLICES = 1                      # weight slices K1 keeps in shared memory (K2: slice_plan)
 
 
 def rank_channels(g, hid, hc):
@@ -79,7 +80,7 @@ def allowed_clusters(c, hid, hc, kseq, kpar, height, width, slices=SLICES):
 
 def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None, slices=SLICES):
     """(G, shared bytes per CTA) for one MCF's shapes; K1 by default, K2 with
-    ``slices=2``.
+    the ``slices`` of its ``slice_plan``.
 
     Rule: the largest G of ``allowed_clusters``.  K1's time falls as G grows
     at every C measured, as K2's does (its sweep is in
@@ -128,14 +129,17 @@ def _canonical(w_shift, z, h, order):
     raise ValueError(f"MCF order {order!r} not in {ORDERS}")
 
 
-def mcf_inverse_plain(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu"):
+def mcf_inverse_plain(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", transform="affine"):
     """Plain PyTorch version of the same function as the kernel: the row loop
     of order A, with orders B/C/D mapped onto it by flips and transposes.
+    ``transform`` other than the kernel's affine one is JAX's scan with that
+    transform (the flows route non-affine MCFs here on every backend).
 
     z: (B,H,W,C); h: (B,H,W,hc) or None; w_shift: OIHW as stored, (hid, C,
-    kseq, kpar) for A/B and (hid, C, kpar, kseq) for C/D; w1: (2C, hid + hc);
-    b1: (2C,).  Returns (B,H,W,C), contiguous.
+    kseq, kpar) for A/B and (hid, C, kpar, kseq) for C/D; w1: (n C, hid + hc)
+    for a transform of n params; b1: (n C,).  Returns (B,H,W,C), contiguous.
     """
+    T = get_transform(transform)
     w_shift, z, h, undo = _canonical(w_shift, z, h, order)
     b, height, width, c = z.shape
     kh, kw = w_shift.shape[2], w_shift.shape[3]
@@ -147,9 +151,7 @@ def mcf_inverse_plain(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu"):
         ctx = F.conv2d(buf[:, :, i:i + kh], w_shift)[:, :, 0].transpose(1, 2)  # (B,W,hid)
         if h is not None:
             ctx = torch.cat([ctx, h[:, i]], dim=-1)
-        raw = f(ctx) @ w1.t() + b1
-        scale = torch.tanh(raw[..., c:] * 0.5) * alpha + 1.0
-        row = (z[:, i] - raw[..., :c]) / (scale + 1e-12)
+        row, _ = T.bwd(z[:, i], T.calc_params(f(ctx) @ w1.t() + b1, alpha))
         buf[:, :, kh + i, cw:cw + width] = row.transpose(1, 2)
     return undo(buf[:, :, kh:, cw:cw + width].permute(0, 2, 3, 1)).contiguous()
 

@@ -16,9 +16,11 @@ dependent chain, so a launch takes the chain's latency, far above the
 operation bound.  The design runs each example on a cluster of G CTAs
 (grid = B * G): the hidden and h channels are split over the G ranks, every
 rank keeps a copy of the latent and its share of each MCF's weights in
-shared memory (staged one MCF ahead by ``cp.async``), and the ranks exchange
-their partial (mu, logs) through distributed shared memory, once per line,
-summed in rank order.  ``cluster_plan`` picks G.
+shared memory (staged one MCF ahead by ``cp.async`` into a ring of two
+slices, or, where two do not fit, into one slice between MCFs), and the
+ranks exchange their partial (mu, logs) through distributed shared memory,
+once per line, summed in rank order.  ``slice_plan`` picks the slices,
+``cluster_plan`` G.
 
 ``macow_unit_inverse`` calls the custom op ``ipoke::macow_unit_inverse``
 (``torch.library.Library``): its CUDA implementation launches the kernel
@@ -41,24 +43,41 @@ from ipoke_tpu_torch.ops.cuda.mcf_inverse import ORDERS, mcf_inverse_plain
 SLICES = 2   # the ring of weight slices: the MCF that scans and the one staged behind it
 
 
-def cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width):
-    """Shared memory of one CTA of K2 at cluster size ``g``
-    (``mcf_inverse.cluster_smem_bytes`` with K2's two slices)."""
-    return k1.cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width, SLICES)
+def cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width, slices=SLICES):
+    """Shared memory of one CTA of K2 at cluster size ``g`` with ``slices``
+    weight slices (``mcf_inverse.cluster_smem_bytes``)."""
+    return k1.cluster_smem_bytes(g, c, hid, hc, kseq, kpar, height, width, slices)
 
 
-def allowed_clusters(c, hid, hc, kseq, kpar, height, width):
-    """The cluster sizes K2 takes at these shapes."""
-    return k1.allowed_clusters(c, hid, hc, kseq, kpar, height, width, SLICES)
+def allowed_clusters(c, hid, hc, kseq, kpar, height, width, slices=SLICES):
+    """The cluster sizes K2 takes at these shapes with ``slices`` weight slices."""
+    return k1.allowed_clusters(c, hid, hc, kseq, kpar, height, width, slices)
+
+
+def slice_plan(c, hid, hc, kseq, kpar, height, width):
+    """The weight slices K2 keeps per CTA at these shapes: 2 (the ring, each
+    MCF staged while the one before scans) where two fit at some G, else 1
+    (each MCF staged after the one before has scanned) where one fits.
+
+    Two slices do not fit at the widest levels of an augmented or stacked
+    flow: C=96 at 8x8 (plants_128 with 32 augment channels, MCF hidden 4C,
+    hc 128) needs 391,424 bytes at G=8, one slice 229,952.  ``ValueError``
+    when one slice does not fit either."""
+    for slices in (SLICES, 1):
+        if allowed_clusters(c, hid, hc, kseq, kpar, height, width, slices):
+            return slices
+    raise ValueError(f"no cluster size in {k1.CLUSTER_SIZES} fits C={c}, hid={hid}, hc={hc} "
+                     f"at {height}x{width}, with one weight slice or two")
 
 
 def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None):
-    """(G, shared bytes per CTA) of K2 for one unit's shapes.
+    """(G, shared bytes per CTA) of K2 for one unit's shapes, with the
+    slices of ``slice_plan``.
 
-    Rule: the largest G of ``allowed_clusters``.  The kernel's time falls as
-    G grows at every C measured (ms per launch on the device, B=8, hc=128,
-    8x8 latent; NVIDIA H100 80GB HBM3 at 700 W; ``python -m
-    ipoke_tpu_torch.utils.kernel_bench``):
+    Rule: the largest G of ``allowed_clusters`` for those slices.  The
+    kernel's time falls as G grows at every C measured (ms per launch on the
+    device, B=8, hc=128, 8x8 latent, two slices; NVIDIA H100 80GB HBM3 at
+    700 W; ``python -m ipoke_tpu_torch.utils.kernel_bench``):
 
         C=32: G=2 0.319, G=4 0.196, G=8 0.143
         C=16: G=1 0.244, G=2 0.141, G=4 0.107, G=8 0.093
@@ -67,10 +86,12 @@ def cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster=None):
 
     A larger G shortens each rank's share of a line; the cluster barrier and
     the distributed-shared-memory reads per line grow slowly with G.  An
-    explicit ``cluster`` is checked instead.  ``ValueError`` for a G that does not divide or does
-    not fit, and when no G fits.
+    explicit ``cluster`` is checked instead, at the same slices.
+    ``ValueError`` for a G that does not divide or does not fit, and when no
+    G fits.
     """
-    return k1.cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster, SLICES)
+    slices = slice_plan(c, hid, hc, kseq, kpar, height, width)
+    return k1.cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster, slices)
 
 
 def _actnorm_inv(x, an):
@@ -131,11 +152,13 @@ def launch(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
     if kpar % 2 == 0:
         raise ValueError(f"macow_unit_inverse: kernel width {kpar} must be odd")
     g, _ = cluster_plan(c, hid, hc, kseq, kpar, height, width, cluster)
+    slices = slice_plan(c, hid, hc, kseq, kpar, height, width)
     out = torch.empty_like(y)
     err = _build.load("mcf_unit_inverse")(
         y.data_ptr(), None if h is None else h.data_ptr(), *ptrs, an1.data_ptr(),
         an2.data_ptr(), out.data_ptr(), b, height, width, c, hid, hc, kseq, kpar,
-        float(alpha), _build.ACT_CODES[act], g, torch.cuda.current_stream(dev).cuda_stream)
+        float(alpha), _build.ACT_CODES[act], g, slices,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("macow_unit_inverse", err)
     macow_unit_inverse.launches += 1
     return out

@@ -48,10 +48,13 @@ def default_dec_channels(spatial_size: int) -> Tuple[int, ...]:
     return (256, 256, 256, 128, 64) if spatial_size == 128 else (256, 256, 128, 64)
 
 
-def build_specs(entry: ModelEntry, mcf_backend: str = "cuda_unit") -> SecondStageSpec:
+def build_specs(entry: ModelEntry, mcf_backend: str = "cuda_unit",
+                arch_overrides: Optional[dict] = None) -> SecondStageSpec:
     """SecondStageSpec wired like the reference constructor.  The MCF inverses
     default to kernel K2 (``'cuda_unit'``), which takes its plain version on
-    CPU tensors."""
+    CPU tensors.  ``arch_overrides`` sets keys of the ``architecture:``
+    section on top of the entry's (a variant: ``augmented_input``,
+    ``multistack``, ``attention``, ...)."""
     fs = FirstStageSpec(
         z_dim=entry.fs_z_dim,
         spatial_size=entry.spatial_size,
@@ -77,5 +80,6 @@ def build_specs(entry: ModelEntry, mcf_backend: str = "cuda_unit") -> SecondStag
         "activation": "elu",
         "condition_nice": False,
         "augmented_input": False,
+        **(arch_overrides or {}),
     }
     return SecondStageSpec.build(arch, fs, poke, cond, full_seq=True, mcf_backend=mcf_backend)

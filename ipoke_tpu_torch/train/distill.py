@@ -31,6 +31,7 @@ from ipoke_tpu_torch.flows import transformer
 from ipoke_tpu_torch.flows.loss import flow_loss
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.nn import blocks
+from ipoke_tpu_torch.nn.core import depth_to_space, space_to_depth
 from ipoke_tpu_torch.train.second_stage import float_leaves
 from ipoke_tpu_torch.utils import prng
 
@@ -46,7 +47,11 @@ class DirectStudentSpec:
 
 def flow_student_spec(teacher_flow, num_steps: Tuple[int, ...]):
     """An invertible student: the teacher's FlowSpec with fewer steps per
-    level, so it reads the same cond and gives the same motion geometry."""
+    level, so it reads the same cond and gives the same motion geometry.
+    A MultiscaleStack teacher raises ``ValueError``, as in JAX."""
+    if transformer.is_stack(teacher_flow):
+        raise ValueError("flow students of a MultiscaleStack teacher are not supported; "
+                         "distill each block or use a plain FlowSpec teacher")
     if len(num_steps) != len(teacher_flow.num_steps):
         raise ValueError(
             f"student must keep the teacher's level count "
@@ -74,9 +79,13 @@ def init_direct(key, spec, ds: DirectStudentSpec, device=None):
 
 
 def _z_at_motion_geometry(flow_spec, z):
-    """The Gaussian draw at the motion latent's geometry: the identity for
-    the port's flows (JAX reshapes here only for multistack flows, which wait
-    in ROADMAP queue 1)."""
+    """The Gaussian draw (at ``transformer.reverse_input_shape``, a stack's
+    reshaped geometry) at the motion latent's geometry, where the direct
+    student works."""
+    if transformer.is_stack(flow_spec) and flow_spec.reshape == "down":
+        return depth_to_space(z, 2)
+    if transformer.is_stack(flow_spec) and flow_spec.reshape == "up":
+        return space_to_depth(z, 2)
     return z
 
 

@@ -297,19 +297,23 @@ def make_train_step(spec, frozen_params, optimizer: Optimizer, spatial_mean: boo
     ``torch.bfloat16``): the forward runs in that dtype on casts of the f32
     params, so the gradients come back in f32; logdet and NLL sum in f32.
 
+    The step passes its key to ``forward_density`` too, which draws the
+    augment channels of ``augmented_input`` from it, as JAX's step does.
+
     The step carries what ``shard_train_setup`` builds its own from:
-    ``grads_of(trainable, batch, rng)`` -> (loss, logs, gradients of the float
-    leaves), without the reference NLL when ``rng`` is None, and the
-    settings it was made with.
+    ``grads_of(trainable, batch, rng, rows=None)`` -> (loss, logs, gradients
+    of the float leaves), without the reference NLL when ``rows`` (this
+    process's rows of the global batch, ``forward_density``'s) is given, and
+    the settings it was made with.
     """
     policy = Policy(compute_dtype) if compute_dtype is not None else None
 
-    def grads_of(trainable, micro, rng):
+    def grads_of(trainable, micro, rng, rows=None):
         params = {**frozen_params, **trainable}
         if policy is not None:
             params, micro = policy.cast(params), policy.cast(micro)
-        out, logdet, _ = second_stage.forward_density(params, spec, micro)
-        loss, logs = flow_loss(out, logdet, key=rng, spatial_mean=spatial_mean,
+        out, logdet, _ = second_stage.forward_density(params, spec, micro, rng=rng, rows=rows)
+        loss, logs = flow_loss(out, logdet, key=None if rows else rng, spatial_mean=spatial_mean,
                                logdet_weight=logdet_weight)
         p = float_leaves(trainable)
         grads = torch.autograd.grad(loss, p, allow_unused=True)
@@ -437,7 +441,7 @@ def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
     from ipoke_tpu_torch.flows.loss import nll
     from ipoke_tpu_torch.parallel import distributed as pdist
     from ipoke_tpu_torch.parallel import sharding as psh
-    from ipoke_tpu_torch.parallel.mesh import axis_size, group
+    from ipoke_tpu_torch.parallel.mesh import axis_index, axis_size, group
 
     if not hasattr(step_fn, "grads_of"):
         raise TypeError("shard_train_setup takes a step made by make_train_step")
@@ -511,19 +515,20 @@ def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
         compute = [gather(t, p.store).requires_grad_(True) if fs else t
                    for t, p, fs in zip(mine, plans, on_data)]
         tree = _with_float_leaves(st.params, compute)
+        b_local = next(iter(local_batch.values())).shape[0]
+        mine_rows = (axis_index(mesh, "data") * b_local, b_local * n_data)
         if any(on_model):
             with convnets.model_parallel(groups["model"]):
-                _, logs, grads = step_fn.grads_of(tree, local_batch, None)
+                _, logs, grads = step_fn.grads_of(tree, local_batch, rng, mine_rows)
         else:
-            _, logs, grads = step_fn.grads_of(tree, local_batch, None)
+            _, logs, grads = step_fn.grads_of(tree, local_batch, rng, mine_rows)
         if n_data > 1:
             _sum_in_buckets(grads, groups["data"])
             torch._foreach_div_(grads, n_data)
             names = ("flow_loss", "nlogdet_loss", "nll_loss")
             losses = pdist.sum_(torch.stack([logs[k] for k in names]), groups["data"]) / n_data
             logs = dict(logs, **dict(zip(names, losses.unbind())))
-        rows = next(iter(local_batch.values())).shape[0] * n_data
-        shape = transformer.reverse_input_shape(spec.flow, rows, spec.latent_size,
+        shape = transformer.reverse_input_shape(spec.flow, mine_rows[1], spec.latent_size,
                                                 spec.flow_in_channels)
         ref = prng.normal(rng, shape, logs["flow_loss"].device)
         logs["reference_nll_loss"] = nll(ref, step_fn.spatial_mean).mean()

@@ -162,7 +162,9 @@ def k1_plan(c, hc, s):
 
 
 def k2_clusters(c, hc, s):
-    return k2.allowed_clusters(c, mcf.default_hidden(c), hc, 2, 3, s, s)
+    """The G K2 takes at these shapes, with the slices of its ``slice_plan``."""
+    hid = mcf.default_hidden(c)
+    return k2.allowed_clusters(c, hid, hc, 2, 3, s, s, k2.slice_plan(c, hid, hc, 2, 3, s, s))
 
 
 def k2_plan(c, hc, s):

@@ -6,7 +6,11 @@
 kw)`` transpose convs, one tree per MaCowStep), with each leaf a
 ``Leaf(kind, shape)``.  ``synth_params`` fills it on the device from a seeded
 ``torch.Generator``: float leaves N(0, 0.05), permutation leaves a valid
-random permutation each, as the JAX package's ``synth_params`` does.
+random permutation each, as the JAX package's ``synth_params`` does.  A
+conv-LU 1x1 conv (``use_1x1``) is filled as the identity with N(0, 0.05)
+off its diagonal, so that it stays invertible.  Every flow option has its
+leaves: the transforms' param counts, ``cond_conv``, ``condition_nice``,
+``attention``, ``use_1x1``, stack flows, and the augment gains.
 """
 from __future__ import annotations
 
@@ -15,12 +19,13 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ipoke_tpu_torch import resolve_device
-from ipoke_tpu_torch.flows import mcf
+from ipoke_tpu_torch.flows import mcf, transformer
 from ipoke_tpu_torch.flows.nice import nice_channels
+from ipoke_tpu_torch.flows.transforms import get_transform
 
 
 class Leaf(NamedTuple):
-    kind: str            # 'float' | 'perm'
+    kind: str            # 'float' | 'perm' | 'lu' (a whole conv-LU node of C channels)
     shape: Tuple[int, ...]
 
 
@@ -58,52 +63,84 @@ def _res_block(c_in, c_out, norm, upsampling=False, stride=1):
 
 # --- flow -------------------------------------------------------------------
 
-def _mcf(c, kernel, hc):
+def _mcf(c, kernel, hc, n_params):
     hid = mcf.default_hidden(c)
     return {"net": {"shift_conv": {"w": _f(hid, c, *kernel)},
-                    "conv1x1": _wn_conv(hid + hc, 2 * c, 1)}}
+                    "conv1x1": _wn_conv(hid + hc, n_params * c, 1)}}
+
+
+def _gated(dim, dim_out=None):
+    dim_out = dim_out or dim
+    p = {"conv1": {"w": _f(dim, 2 * dim, 3, 3), "b": _f(dim)},
+         "conv2": {"w": _f(2 * dim_out, 2 * dim, 3, 3), "b": _f(2 * dim_out)}}
+    if dim_out != dim:
+        p["conv_sc"] = {"w": _f(dim_out, dim, 1, 1), "b": _f(dim_out)}
+    return p
 
 
 def _unit(c, spec):
     kh, kw = spec.kernel_size
-    hc = spec.h_channels
-    return {"conv1": _mcf(c, (kh, kw), hc), "conv2": _mcf(c, (kh, kw), hc),
-            "actnorm1": _actnorm(c),
-            "conv3": _mcf(c, (kw, kh), hc), "conv4": _mcf(c, (kw, kh), hc),
-            "actnorm2": _actnorm(c)}
+    hc, n = spec.h_channels, get_transform(spec.transform).n_params
+    p = {"cond_conv_block": _gated(hc)} if spec.cond_conv and hc else {}
+    p.update({"conv1": _mcf(c, (kh, kw), hc, n), "conv2": _mcf(c, (kh, kw), hc, n),
+              "actnorm1": _actnorm(c),
+              "conv3": _mcf(c, (kw, kh), hc, n), "conv4": _mcf(c, (kw, kh), hc, n),
+              "actnorm2": _actnorm(c)})
+    return p
 
 
-def _nice(c, hidden, split, order, factor=2):
+def _nice(c, spec, split, order, factor=2, transform=None):
+    hid, s = spec.hidden_channels, spec.spatial_size
     _, _, net_in, out_base = nice_channels(c, factor, split, order)
-    return {"net": {"conv1": {"w": _f(hidden, net_in, 3, 3)},
-                    "conv2": {"w": _f(hidden, hidden, 1, 1)},
-                    "conv3": _wn_conv(hidden, 2 * out_base, 3)}}
+    n = get_transform(transform or spec.transform).n_params
+    conv3 = _wn_conv(hid + (spec.h_channels if spec.condition_nice else 0), n * out_base, 3)
+    if spec.attention:
+        def attn_block():
+            return {"gated": _gated(hid),
+                    "attn": {"proj1": {"w": _f(hid, 3 * hid), "b": _f(3 * hid)},
+                             "proj2": {"w": _f(hid, 2 * hid), "b": _f(2 * hid)}},
+                    "ln": {"gamma": _f(s, s, hid), "beta": _f(s, s, hid)}}
+
+        return {"net": {"in_resnet": _gated(net_in, hid), "pos_emb": _f(s, s, hid),
+                        "conv1": attn_block(), "conv2": attn_block(), "conv3": conv3}}
+    return {"net": {"conv1": {"w": _f(hid, net_in, 3, 3)},
+                    "conv2": {"w": _f(hid, hid, 1, 1)}, "conv3": conv3}}
+
+
+def _level_perm(c, spec):
+    return Leaf("lu", (c,)) if spec.use_1x1 else _perm(c)
 
 
 def _step(c, spec):
-    hid = spec.hidden_channels
     return {
         "actnorm1": _actnorm(c), "conv1x1": _perm(c),
         "units1": [_unit(c, spec), _unit(c, spec)],
-        "coupling1_up": _nice(c, hid, "continuous", "up"),
-        "coupling1_dn": _nice(c, hid, "continuous", "down"),
+        "coupling1_up": _nice(c, spec, "continuous", "up"),
+        "coupling1_dn": _nice(c, spec, "continuous", "down"),
         "actnorm2": _actnorm(c),
         "units2": [_unit(c, spec), _unit(c, spec)],
-        "coupling2_up": _nice(c, hid, "skip", "up"),
-        "coupling2_dn": _nice(c, hid, "skip", "down"),
+        "coupling2_up": _nice(c, spec, "skip", "up"),
+        "coupling2_dn": _nice(c, spec, "skip", "down"),
     }
 
 
 def flow_shapes(spec):
+    if transformer.is_stack(spec):
+        p = {"blocks": [flow_shapes(bs) for bs in spec.block_specs()]}
+        if spec.reshape != "none" and spec.h_channels:
+            hc = spec.h_channels
+            p["h_transforms"] = [_conv_block(hc, hc, norm="group", transposed=spec.reshape == "up")
+                                 for _ in range(len(spec.levels) - spec.reshape_step)]
+        return p
     levels = []
     for c, f, n in zip(spec.level_channels(), spec.level_factors(), spec.num_steps):
         _, z1c, _, _ = nice_channels(c, f, "continuous", "up")
         levels.append({
             "steps": [_step(c, spec) for _ in range(n)],
-            "prior": {"conv1x1": _perm(c),
-                      "coupling": _nice(c, spec.hidden_channels, "continuous", "up", f),
+            "prior": {"conv1x1": _level_perm(c, spec),
+                      "coupling": _nice(c, spec, "continuous", "up", f, spec.prior_transform),
                       "actnorm": _actnorm(c - z1c)},
-            "shuffle": _perm(c),
+            "shuffle": _level_perm(c, spec),
         })
     return {"levels": levels}
 
@@ -181,8 +218,6 @@ def _first_stage(fs):
 
 def param_shapes(spec):
     """Leaf tree of the second stage's sampling-path params."""
-    if spec.augment_channels:
-        raise NotImplementedError("augmented flow input is not ported yet (ROADMAP.md queue 1)")
     p = {"flow": flow_shapes(spec.flow), "first_stage": _first_stage(spec.first_stage),
          "poke_embedder": _encoder(spec.poke_embedder)}
     if spec.use_cond:
@@ -194,6 +229,9 @@ def param_shapes(spec):
     for name, w in adapters:
         if w.min_spatial_size != s:
             p[name] = _conv_block(w.nf_max, w.nf_max, transposed=w.min_spatial_size < s)["conv"]
+    if spec.augment_channels:
+        p["scale_augment"] = _f(spec.augment_channels)
+        p["shift_augment"] = _f(spec.augment_channels)
     return p
 
 
@@ -201,6 +239,14 @@ def _fill(tree, gen, device):
     if isinstance(tree, Leaf):
         if tree.kind == "perm":
             return torch.randperm(tree.shape[0], generator=gen, device=device)
+        if tree.kind == "lu":
+            c = tree.shape[0]
+            eye = torch.eye(c, device=device)
+            return {"permutated": eye, "sign_s": torch.ones(c, device=device),
+                    "lmask": torch.ones(c, c, device=device).tril(-1),
+                    "l": torch.randn((c, c), generator=gen, device=device).mul_(0.05),
+                    "u": torch.randn((c, c), generator=gen, device=device).mul_(0.05),
+                    "log_s": torch.zeros(c, device=device)}
         return torch.randn(tree.shape, generator=gen, device=device).mul_(0.05)
     if isinstance(tree, dict):
         return {k: _fill(v, gen, device) for k, v in tree.items()}

@@ -259,16 +259,77 @@ def test_port_metrics_read_converted_npz(weights_dir):
         assert np.array_equal(w, heads[f"lin{i}.model.1.weight"].reshape(-1))
 
 
+# one spec per key family of the flow variants: the attention NICE coupling
+# (pos_emb, in_resnet, the conv-attention blocks) and the gated conv on h of
+# a conditioned MaCowUnit (cond_conv_block)
+VARIANTS = {"attention": (dict(attention=True, heads=2), ".net.pos_emb"),
+            "cond_conv": (dict(cond_conv=True), ".cond_conv_block.conv1.weight")}
+
+
+def _variant_tree(family, seed=0):
+    jspec = JaxFlowSpec(num_steps=(1,), in_channels=8, hidden_channels=16, h_channels=16,
+                        factor=4, **VARIANTS[family][0])
+    spec = port_flow_spec(jspec)
+    tree = redraw(jax_bridge.unbridge_flow(macow.init_multiscale(prng.prng_key(seed), spec)), seed)
+    return jspec, spec, tree
+
+
+@pytest.mark.parametrize("family", sorted(VARIANTS))
+def test_variant_flow_converts_as_jax(family):
+    """A reference-shaped state_dict holding the family's keys: the port's
+    convert_flow equals JAX's, leaf for leaf and bitwise."""
+    jspec, spec, tree = _variant_tree(family)
+    sd = ti.export_flow(tree, spec)
+    assert any(k.endswith(VARIANTS[family][1]) for k in sd)
+    assert_trees_equal(ti.convert_flow(sd, spec), np_tree(jti.convert_flow(sd, jspec)))
+
+
+@pytest.mark.parametrize("family", sorted(VARIANTS))
+def test_variant_flow_export_round_trip(family):
+    """The port's export_flow of a variant tree converts back to that tree,
+    and exports again to the same state_dict."""
+    _, spec, tree = _variant_tree(family, seed=1)
+    sd = ti.export_flow(tree, spec)
+    back = ti.convert_flow(sd, spec)
+    assert_trees_equal(back, tree)
+    again = ti.export_flow(back, spec)
+    assert set(again) == set(sd) and all(np.array_equal(again[k], sd[k]) for k in sd)
+
+
 @pytest.mark.parametrize("key,what", [
-    ("flow.flow.layers.0.0.coupling1_up.net.pos_emb", "attention NICE"),
-    ("flow.flow.layers.0.0.units1.0.cond_conv_block.conv1.weight", "conditioned MaCowUnit"),
-])
-def test_variant_keys_raise(key, what):
+    ("flow.flow.layers.0.0.units1.0.conv1.net.masked_conv.conv.weight_v", "MaCow v1"),
+    ("flow.flow.sub_layers.0.norm_layer.loc", "fully connected flow")])
+def test_legacy_flow_keys_raise(key, what):
     spec, tree = _flow_tree(1)
     sd = dict(ti.export_flow(tree, spec), **{key: np.zeros((2, 2), np.float32)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7") as err:
+    with pytest.raises(NotImplementedError, match="queue 1 item 7.3") as err:
         ti.convert_flow(sd, spec)
-    assert key in str(err.value) and what in str(err.value)
+    assert what in str(err.value)
+
+
+@pytest.mark.parametrize("kind", ["stack", "variants"])
+def test_variant_trees_round_trip_through_npz(kind, tmp_path):
+    """A port flow tree -> JAX's layout -> ckpt/io npz -> back, bitwise: a
+    multistack tree ('up': its h transforms are transpose convs) with conv-LU
+    leaves, and a flow with conv-LU, attention and cond_conv leaves."""
+    from ipoke_tpu_torch.ckpt import io
+    from ipoke_tpu_torch.flows import transformer
+    from ipoke_tpu_torch.flows.multistack import StackSpec
+
+    if kind == "stack":
+        spec = StackSpec(levels=((1,), (1,)), factors=(4, 2), in_channels=8,
+                         mid_channels_factor=2, h_channels=16, reshape="up", use_1x1=True)
+    else:
+        spec = port_flow_spec(JaxFlowSpec(num_steps=(1,), in_channels=8, hidden_channels=16,
+                                          h_channels=16, factor=4, use_1x1=True, attention=True,
+                                          cond_conv=True))
+    params = transformer.init(prng.prng_key(2), spec, CPU)
+    io.save(tmp_path / "flow.npz", {"flow": jax_bridge.unbridge_flow(params)})
+    loaded, _ = io.load(tmp_path / "flow.npz")
+    back = jax_bridge.bridge_flow(loaded["flow"], CPU)
+    a, b = flatten(params), flatten(back)
+    assert set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                    for k in a)
 
 
 def test_load_lightning_ckpt(tmp_path):

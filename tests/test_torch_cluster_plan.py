@@ -93,3 +93,27 @@ def test_explicit_cluster_that_does_not_fit_raises(kernel, c, hc, g):
 def test_explicit_cluster_that_does_not_divide_raises(c, hc, g, kernel):
     with pytest.raises(ValueError, match="divide"):
         PLANS[kernel].cluster_plan(c, mcf.default_hidden(c), hc, *KERNEL, 8, 8, cluster=g)
+
+
+@pytest.mark.parametrize("c,s,g,slices,nbytes", [
+    # plants_128 with 32 augment channels: level 0 at 8x8
+    (96, 8, 8, 1, 229_952),
+    # a registry width keeps the ring of two
+    (64, 8, 8, 2, 197_248),
+    # iper_128's multistack 'down' block at 4x4
+    (128, 4, 8, 1, 176_256)])
+def test_k2_slice_plan(c, s, g, slices, nbytes):
+    hid, hc = mcf.default_hidden(c), 128
+    assert k2.slice_plan(c, hid, hc, *KERNEL, s, s) == slices
+    assert k2.cluster_plan(c, hid, hc, *KERNEL, s, s) == (g, nbytes)
+    assert nbytes == k2.cluster_smem_bytes(g, c, hid, hc, *KERNEL, s, s, slices)
+    assert g == max(k2.allowed_clusters(c, hid, hc, *KERNEL, s, s, slices))
+    if slices == 1:   # two slices fit no G
+        assert k2.allowed_clusters(c, hid, hc, *KERNEL, s, s) == []
+
+
+def test_k2_one_slice_too_wide_raises():
+    # C=128 at 8x8: one slice needs 238,080 bytes at G=8
+    assert k2.cluster_smem_bytes(8, 128, 256, 128, *KERNEL, 8, 8, 1) == 238_080
+    with pytest.raises(ValueError, match="one weight slice or two"):
+        k2.cluster_plan(128, 256, 128, *KERNEL, 8, 8)

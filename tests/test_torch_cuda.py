@@ -101,10 +101,10 @@ def test_k1_raises_on_a_cluster_that_does_not_fit(cuda):
         assert err != 0
 
 
-def _unit(c, hc, dev, seed, kernel=(2, 3)):
+def _unit(c, hc, dev, seed, kernel=(2, 3), s=8):
     gen = torch.Generator().manual_seed(seed)
-    y = torch.randn(8, 8, 8, c, generator=gen).to(dev)
-    h = torch.randn(8, 8, 8, hc, generator=gen).to(dev) if hc else None
+    y = torch.randn(8, s, s, c, generator=gen).to(dev)
+    h = torch.randn(8, s, s, hc, generator=gen).to(dev) if hc else None
     hid = mcf.default_hidden(c)
     weights = [_weights(gen, c, hid, hc, k, dev) for k in (kernel, kernel, kernel[::-1], kernel[::-1])]
     an1, an2 = ((torch.randn(2, c, generator=gen) * 0.1).to(dev) for _ in range(2))
@@ -161,8 +161,27 @@ def test_k2_raises_on_a_cluster_that_does_not_fit(cuda):
     ptrs = [t.data_ptr() for w in weights for t in w]
     err = _build.load("mcf_unit_inverse")(
         y.data_ptr(), h.data_ptr(), *ptrs, an1.data_ptr(), an2.data_ptr(), y.data_ptr(),
-        8, 8, 8, 32, 128, 128, 2, 3, 1.0, 0, 1, torch.cuda.current_stream(cuda).cuda_stream)
+        8, 8, 8, 32, 128, 128, 2, 3, 1.0, 0, 1, 2, torch.cuda.current_stream(cuda).cuda_stream)
     assert err != 0
+
+
+# one weight slice: the widest levels of plants_128 with 32 augment channels
+# (C=96 at 8x8) and of iper_128's multistack 'down' block (C=128 at 4x4)
+K2_ONE_SLICE_CASES = [(c, s, g) for c, s in [(96, 8), (128, 4)]
+                      for g in k2.allowed_clusters(c, mcf.default_hidden(c), 128, 2, 3, s, s, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,s,g", K2_ONE_SLICE_CASES)
+def test_k2_one_slice_matches_plain(cuda, c, s, g):
+    assert k2.slice_plan(c, mcf.default_hidden(c), 128, 2, 3, s, s) == 1
+    y, h, weights, an1, an2 = _unit(c, 128, cuda, 200 + c, s=s)
+    n0 = k2.macow_unit_inverse.launches
+    out = k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=g)
+    torch.cuda.synchronize()
+    assert k2.macow_unit_inverse.launches == n0 + 1
+    ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.gpu
@@ -911,3 +930,60 @@ def test_parallel_dryrun_on_the_card(cuda):
         for k in ("z_fixed", "z_drawn"):
             assert r["sample"][k]["max_abs_err"] <= dryrun.CUDA_BATCH_TOL
             assert r["sample"][k]["launches"] == {"mcf_inverse": 0, "macow_unit_inverse": units}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["stack-up", "stack-none", "nlsq", "attention"])
+def test_variant_flows_sample_on_the_card(cuda, variant):
+    """A tiny second stage of each variant the smoke does not run, sampled on
+    the card on 'cuda_unit' and 'cuda' against 'scan': an 'up' stack (its
+    second block on a 16x16 latent), a stack without reshape, the nlsq
+    transform (no launch: the plain loop on every backend) and attention."""
+    from dataclasses import replace
+
+    from ipoke_tpu_torch.flows import transformer
+    from ipoke_tpu_torch.flows.macow import FlowSpec
+    from ipoke_tpu_torch.flows.multistack import StackSpec
+    from ipoke_tpu_torch.models import second_stage
+    from ipoke_tpu_torch.models.encoders import WrapperSpec
+    from ipoke_tpu_torch.models.first_stage import FirstStageSpec
+    from ipoke_tpu_torch.models.second_stage import SecondStageSpec
+    from ipoke_tpu_torch.utils import prng, synth
+
+    s, t = 32, 3
+    if variant.startswith("stack"):
+        flow = StackSpec(levels=((1,), (1,)), factors=(4, 2), in_channels=16,
+                         mid_channels_factor=2, h_channels=32, reshape=variant[6:])
+    else:
+        flow = FlowSpec(num_steps=(1, 1), in_channels=16, hidden_channels=32, h_channels=32,
+                        factor=16, transform="nlsq" if variant == "nlsq" else "affine",
+                        attention=variant == "attention", cond_conv=variant == "attention")
+    spec = SecondStageSpec(
+        flow=flow,
+        first_stage=FirstStageSpec(z_dim=16, spatial_size=s, max_frames=t, enc_channels=(16,) * 4,
+                                   dec_channels=(16,) * 3, n_gru_layers=2, min_spatial_size=8,
+                                   decode_dtype="f32"),
+        poke_embedder=WrapperSpec(nf_in=2, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                  deterministic=True),
+        conditioner=WrapperSpec(nf_in=3, nf_max=16, spatial_size=s, min_spatial_size=8,
+                                deterministic=False))
+    params = second_stage.init(prng.prng_key(0), spec, cuda)
+    params["flow"] = synth.set_flow_output_gains(params["flow"], 0.02)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"images": torch.rand(2, t, s, s, 3, generator=gen, device=cuda) * 2 - 1,
+             "poke": torch.randn(2, s, s, 2, generator=gen, device=cuda)}
+    z = torch.randn(transformer.reverse_input_shape(flow, 2, 8, 16), generator=gen, device=cuda)
+    units = 4 * (2 if variant.startswith("stack") else sum(flow.num_steps))
+    affine = variant != "nlsq"
+    vids = {}
+    for backend, want in (("cuda_unit", (0, units * affine)), ("cuda", (4 * units * affine, 0)),
+                          ("scan", (0, 0))):
+        n0 = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        vids[backend] = second_stage.forward_sample(
+            params, replace(spec, flow=replace(flow, mcf_backend=backend)), batch, z=z)
+        torch.cuda.synchronize()
+        got = (k1.mcf_inverse.launches - n0[0], k2.macow_unit_inverse.launches - n0[1])
+        assert got == want, (backend, got, want)
+    assert bool(torch.isfinite(vids["scan"]).all())
+    for backend in ("cuda_unit", "cuda"):
+        assert (vids[backend] - vids["scan"]).abs().max().item() <= 2e-3

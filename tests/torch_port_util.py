@@ -42,7 +42,7 @@ def _fields(spec, drop=()):
 
 
 def port_flow_spec(jspec, **overrides):
-    kw = _fields(jspec, drop=("heads", "spatial_size", "remat", "mcf_backend", "mcf_unroll"))
+    kw = _fields(jspec, drop=("remat", "mcf_backend", "mcf_unroll"))
     kw.update(overrides)
     return PortFlowSpec(**kw)
 
