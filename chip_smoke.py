@@ -64,7 +64,7 @@ Phases, each fatal on failure:
              MaCowStep), loaded and held to the live forward_sample of the
              same cut flow on the same z within CUDA_BATCH_TOL (60 K2
              launches per call); the direct student of
-             the distill phase with the u8 wire at buckets 1 and 8,
+             the distill phase with the u8 wire at bucket 8,
              served over HTTP by the port's server (SERVE_REQUESTS npy_u8
              requests, 2 processes x 8 connections).  Export seconds per
              bucket and file sizes are printed.
@@ -176,6 +176,19 @@ Phases, each fatal on failure:
              last.npz reloads bitwise (u included), test (find_best, then
              validate) gives the trainer's validation again, and the gradient
              penalty on one example on the card against the CPU's.
+ 10b. stage1 variants  experiments/first_stage.train with
+             architecture.baseline: poke_vae on the stage-1 phase's config
+             (the PokeVAE from JAX's init at seed 1), one warm-up step and
+             POKE_VAE_STEPS timed steps, the epoch's validation, test of the
+             best checkpoint; checked: finite losses, all three nets moved,
+             last.npz reloads bitwise (u kept), test equals the validation,
+             one poke_vae_forward on the card against the CPU (VARIANT_TOL),
+             a sample_prior batch of 8 finite in [-1, 1].  Then the RNN
+             motion model and the FC baseline at the same width (B=8 timed,
+             one video against the CPU), and a MaCow v1 step, the FC,
+             mix-CDF and leapfrog flows (round trips, LEGACY_ROUND_TOL), a
+             BigGAN and a motion-generator forward at the JAX tests' widths,
+             each against the CPU.  No kernel launches in the phase.
  11. data    the data path on a prepared iPER-layout tree written with
              data/tree (4 videos x 30 frames at 256^2, PNG rows in all five
              filters, so the port's PNG decode and LANCZOS resize run): the
@@ -215,7 +228,8 @@ Phases, each fatal on failure:
              2 stage-2 steps through main at cut depth.  No kernel launches.
  12. report  a JSON line of the variants phase, one of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
-             the stage-1 phase, one of the resume phase, one of the train phase, one of the distill
+             the stage-1 phase, one of the stage-1 variants phase and its
+             seconds, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
              and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
@@ -311,7 +325,9 @@ STUDENT_CALLS = 3          # timed forward_sample_student calls, after one warm-
 # bucket 8 only: exporting the flagship flow graph is the slowest step of the
 # run (PERF.md)
 ARTIFACT_FLOW_BUCKETS = (8,)
-ARTIFACT_STUDENT_BUCKETS = (1, 8)   # the smallest and the largest: each export ~20-26 s
+# bucket 8 only since the stage-1 variants phase came in: each student export
+# took 34 s on a slow host (PERF.md), and the smoke must stay well inside 1200 s
+ARTIFACT_STUDENT_BUCKETS = (8,)
 STAGE1_STEPS = 4           # timed stage-1 GAN steps, after one warm-up step
 STAGE1_GP_TOL = 2e-4       # the gradient penalty on the card against the CPU's
 # I3D features of the sampled videos on the card against the port's CPU I3D
@@ -1537,6 +1553,298 @@ def phase_stage1(device, card, entry, steps=STAGE1_STEPS, b=BATCH):
             "test_max_rel_diff": test_err,
             "launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]},
             "test_launches": {"mcf_inverse": n_test[0], "macow_unit_inverse": n_test[1]}}
+
+
+# the stage-1 variants and the legacy modules
+POKE_VAE_STEPS = 2         # timed poke_vae GAN steps, after one warm-up step
+# a forward on the card against the CPU (oneDNN off) on the same weights and
+# inputs, every output relative to 1 + max|ref|: f32 convs, cuDNN against the CPU
+VARIANT_TOL = 2e-4
+# inverse(forward(x)) = x on the card: the JAX package's own round-trip
+# tolerances (tests/test_legacy_flows.py, tests/test_legacy_models.py), and
+# how many of a leg's inputs its round trip gives back (its last outputs)
+LEGACY_ROUND_TOL = {"macow_v1": (2e-4, 1), "fc_flow": (1e-4, 1), "mixcdf": (5e-3, 1),
+                    "leapfrog": (1e-4, 2)}
+
+
+def _moved(tree, device):
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_moved(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _outputs(out):
+    return [o for o in (out if isinstance(out, (tuple, list)) else [out]) if o is not None]
+
+
+def _card_vs_cpu(device, fn, tree, *args):
+    """``fn(tree, *args)`` on the card, timed after a warm-up call, and on
+    the CPU (oneDNN off) on copies of the same tree and inputs: (card
+    outputs, the max error of each relative to 1 + max|CPU's|, card ms)."""
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        t_card, a_card = _moved(tree, device), _moved(args, device)
+        fn(t_card, *a_card)
+        _sync(device)
+        t0 = time.perf_counter()
+        got = _outputs(fn(t_card, *a_card))
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        del t_card, a_card
+        with torch.backends.mkldnn.flags(enabled=False):
+            ref = _outputs(fn(_moved(tree, cpu), *_moved(args, cpu)))
+    errs = [float((g.cpu() - r).abs().max() / (1 + r.abs().max())) for g, r in zip(got, ref)]
+    if len(got) != len(ref) or any(tuple(g.shape) != tuple(r.shape) for g, r in zip(got, ref)):
+        raise SystemExit("a forward on the card and on the CPU gave outputs of other shapes")
+    return got, errs, ms
+
+
+def _legacy_legs(key):
+    """(name, fn(tree, *inputs), tree, inputs, index of the round trip's
+    input among the outputs or None) at the JAX package's test widths; a
+    flow's fn returns its forward, its logdet and inverse(forward(x))."""
+    from ipoke_tpu_torch.flows import leapfrog, legacy, macow_v1, mixcdf
+    from ipoke_tpu_torch.models import biggan, motion_generator
+
+    rng = np.random.default_rng(0)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    v1 = macow_v1.MaCowV1Spec(in_channels=8, hidden_channels=24)
+    fc = legacy.FCFlowSpec(in_channels=16, embedding_dim=8, hidden_dim=32, hidden_depth=2,
+                           n_flows=4)
+    mc = mixcdf.MixCDFSpec(channels=8, hidden_dim=16, components=3, n_flows=2)
+    lf = leapfrog.LeapFlowSpec(in_channels=12, hidden_dim=32, n_flows=3)
+    mg = motion_generator.GeneratorSpec(img_size=64, z_dim=16, decoder_factor=2)
+    bg = biggan.BigGANSpec(resolution=64, chn=8)
+
+    def v1_fn(p, x):
+        y, ld = macow_v1.step_v1_forward(p, x, v1)
+        return y, ld, macow_v1.step_v1_inverse(p, y, v1)
+
+    def fc_fn(p, x, e):
+        z, ld = legacy.fc_flow_forward(p, fc, x, e)
+        return z, ld, legacy.fc_flow_inverse(p, fc, z, e)
+
+    def mc_fn(p, x):
+        z, ld = mixcdf.flow_forward(p, x, mc)
+        return z, ld, mixcdf.flow_inverse(p, z, mc)
+
+    def lf_fn(p, x, v):
+        x1, v1_, ld = leapfrog.leap_flow_forward(p, lf, x, v)
+        return x1, v1_, ld, *leapfrog.leap_flow_inverse(p, lf, x1, v1_)
+
+    return [
+        ("macow_v1", v1_fn, macow_v1.init_step_v1(prng.fold_in(key, 1), v1), (arr(2, 8, 8, 8),)),
+        ("fc_flow", fc_fn, legacy.init_fc_flow(prng.fold_in(key, 2), fc), (arr(4, 16), arr(4, 8))),
+        ("mixcdf", mc_fn, mixcdf.init_flow(prng.fold_in(key, 3), mc), (arr(2, 8, 8, 8),)),
+        ("leapfrog", lf_fn, leapfrog.init_leap_flow(prng.fold_in(key, 4), lf),
+         (arr(4, 12), arr(4, 12))),
+        ("biggan", lambda p, z, c: biggan.apply(p, z, c, bg), biggan.init(prng.fold_in(key, 5), bg),
+         (arr(2, 100), arr(2, 128))),
+        ("motion_generator", lambda p, img, m: motion_generator.apply(p, img, m, mg),
+         motion_generator.init(prng.fold_in(key, 6), mg), (arr(2, 64, 64, 3), arr(2, 16))),
+    ]
+
+
+def phase_stage1_variants(device, card, entry, steps=POKE_VAE_STEPS, b=BATCH):
+    """The stage-1 model variants and the legacy modules on the card.
+
+    poke_vae: ``experiments/first_stage.train`` with ``architecture.baseline:
+    poke_vae`` on ``stage1_config`` (``entry``'s first stage at full width;
+    the PokeVAE from JAX's init at seed 1, the discriminators at seed 0),
+    one warm-up step then ``steps`` timed steps, the epoch's validation on
+    one batch, then ``test`` on the best checkpoint.  Checked: every loss
+    finite, the trainable leaves of all three nets moved, ``last.npz``
+    reloads bitwise through the bridge (``u`` kept), ``test`` gives the
+    validation again; one ``poke_vae_forward`` of a video on the card
+    against the CPU's on the trained weights (VARIANT_TOL); one
+    ``sample_prior`` call at B=``b`` finite in [-1, 1].
+    Parity legs: ``rnn_motion_forward`` and ``fc_baseline_forward`` (one
+    more decoder stage and one more encoder layer for 128^2 from a 4x4
+    start) at the same width from JAX's init, timed at B=``b``, one video
+    on the card against the CPU; a MaCow v1 step, the FC, mix-CDF and
+    leapfrog flows, a BigGAN and a motion-generator forward at the widths
+    of the JAX package's own tests, each on the card against the CPU, the
+    flows' round trips within LEGACY_ROUND_TOL.  No kernel launches in the
+    phase."""
+    from ipoke_tpu_torch.models import variants
+
+    config = stage1_config(entry, b, steps)
+    config["general"]["experiment"] = "chip_smoke_poke_vae"
+    config["architecture"]["baseline"] = "poke_vae"
+    fs_spec, ds_spec, dt_spec, _ = experiment_fs.specs_from_config(config)
+    pv_spec = experiment_fs.poke_vae_spec(config, fs_spec)
+    seed = config["general"]["seed"]
+    t_phase = time.perf_counter()
+    _zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_poke_vae_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        run = experiment_fs.train(config, dirs, device=device, max_steps=1 + steps)
+        n_step = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0
+        hist, state = run["history"], run["state"]
+        keys = sorted(hist[0].keys() - {"step_s"})
+        step_ms = [h["step_s"] * 1e3 for h in hist]
+        n_params = sum(t.numel() for t in train_ss.float_leaves(
+            train_fs.trainable(state.gen_params)))
+        log(f"poke_vae [{card}]: the PokeVAE on {entry.name}'s first stage at full width (z "
+            f"{fs_spec.z_dim}, encoder {fs_spec.enc_channels}, decoder {fs_spec.dec_channels}, "
+            f"{fs_spec.n_gru_layers} GRU layers, a {pv_spec.poke_enc_spec.n_stages}-stage poke "
+            f"encoder), {n_params / 1e6:.2f} M trainable; B={b}, {entry.max_frames} frames of "
+            f"{entry.spatial_size}^2, f32: init {run['init_s']:.2f} s; step first "
+            f"{step_ms[0]:.1f} ms, then {', '.join(f'{x:.1f}' for x in step_ms[1:])} ms; peak "
+            f"{peak:.2f} GiB; K1/K2 launches in the steps {n_step[0]}/{n_step[1]}")
+        for i, h in enumerate(hist):
+            log(f"poke_vae: step {i}: " + ", ".join(f"{k} {h[k]:.6g}" for k in keys))
+        if not all(np.isfinite(h[k]) for h in hist for k in keys):
+            raise SystemExit("poke_vae: a loss is not finite")
+        base, _ = train_fs.init_gan_state(prng.prng_key(seed), fs_spec, ds_spec, dt_spec,
+                                          device=device)
+        start = {"gen": variants.init_poke_vae(prng.prng_key(seed + 1), pv_spec, device),
+                 "ds": base.ds_params, "dt": base.dt_params}
+        del base
+        moved = {}
+        for n in train_fs.NETS:
+            now, then = _flat(getattr(state, f"{n}_params")), _flat(start[n])
+            trained = [k for k in now if not k.endswith("/u")]
+            moved[n] = sum(not torch.equal(now[k].detach(), then[k]) for k in trained)
+            log(f"poke_vae: {n}: {moved[n]} of {len(trained)} trainable leaves moved")
+            if moved[n] < len(trained) // 2:
+                raise SystemExit(f"poke_vae: {n} did not train")
+        del start
+        saved, meta = io.load(run["ckpt"])
+        back = bridge_gan_params(saved, device)
+        ckpt_ok = (meta["step"] == 1 + steps and "u" in back["gen_params"]["poke_enc"]["stem"]["conv"]
+                   and all(_flat(back[f"{n}_params"]).keys() == _flat(getattr(state, f"{n}_params")).keys()
+                           and all(torch.equal(v, _flat(getattr(state, f"{n}_params"))[k].detach())
+                                   for k, v in _flat(back[f"{n}_params"]).items())
+                           for n in train_fs.NETS))
+        ckpt_gb = os.path.getsize(run["ckpt"]) / 1e9
+        del saved, back
+        log(f"poke_vae: last.npz ({ckpt_gb:.3f} GB, step {meta['step']}) reloads to the trained "
+            f"nets bitwise, u included: {ckpt_ok}")
+        if not ckpt_ok:
+            raise SystemExit("poke_vae: last.npz does not reload to the trained nets")
+        val_keys = ("FVD-val", "ssim-val", "psnr-val", "lpips-val")
+        vals = run["val"]
+        if [v["step"] for v in vals] != [1 + steps]:
+            raise SystemExit(f"poke_vae: the epoch's end was not validated: {vals}")
+        val = {k: vals[-1][k] for k in val_keys}
+        t0 = time.perf_counter()
+        tested = experiment_fs.test(config, dirs, device=device)
+        test_s = time.perf_counter() - t0
+        test_err = max(abs(tested[k] - val[k]) / (1 + abs(val[k])) for k in val_keys)
+        log(f"poke_vae [{card}]: validation " + ", ".join(f"{k} {v:.6g}" for k, v in val.items())
+            + f" ({vals[-1]['val_s']:.1f} s); test of the best checkpoint {test_s:.1f} s, max "
+            f"relative difference {test_err:.3g} (tolerance {STAGE1_TEST_TOL})")
+        if not test_err <= STAGE1_TEST_TOL or not all(np.isfinite(v) for v in val.values()):
+            raise SystemExit(f"poke_vae: test of the best checkpoint disagrees: {tested} vs {val}")
+    pv = {"init_s": run["init_s"], "step_ms": step_ms, "step_ms_median": _median(step_ms[1:]),
+          "peak_gib": peak, "losses": {k: [h[k] for h in hist] for k in keys}, "moved": moved,
+          "ckpt_gb": ckpt_gb, "val": val, "test": tested, "test_s": test_s,
+          "step_launches": {"mcf_inverse": n_step[0], "macow_unit_inverse": n_step[1]}}
+    raw = next(iter(StaticDataModule(config["data"]).loader("val")))
+    batch = {k: torch.from_numpy(np.asarray(raw[k])) for k in ("images", "poke")}
+    one = {k: v[:1] for k, v in batch.items()}
+    with torch.no_grad():
+        gen_sn = _to_cpu(first_stage_mod.materialize_spectral_norm(state.gen_params))
+    del state, run
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def pv_fwd(p, bt, prior=False):
+        return variants.poke_vae_forward(p, bt, pv_spec, rng=prng.prng_key(5), sample_prior=prior)
+
+    _, errs, _ = _card_vs_cpu(device, pv_fwd, gen_sn, one)
+    pv["forward_max_rel_err"] = max(errs)
+    with torch.no_grad():
+        card_gen, card_batch = _moved(gen_sn, device), _moved(batch, device)
+        pv_fwd(card_gen, card_batch)
+        _sync(device)
+        t0 = time.perf_counter()
+        x_hat = pv_fwd(card_gen, card_batch)[0]
+        _sync(device)
+        pv["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        prior, mu, _ = pv_fwd(card_gen, card_batch, prior=True)
+        del card_gen, card_batch
+    prior_ok = (mu is None and tuple(prior.shape) == tuple(x_hat.shape)
+                and bool(torch.isfinite(prior).all()) and float(prior.abs().max()) <= 1.0)
+    log(f"poke_vae [{card}]: poke_vae_forward at B={b} {pv['forward_ms']:.1f} ms; one video on "
+        f"the card against the CPU: max relative error {max(errs):.3g} (tolerance "
+        f"{VARIANT_TOL}); sample_prior at B={b} {tuple(prior.shape)} finite in [-1, 1]: {prior_ok}")
+    if not max(errs) <= VARIANT_TOL or not prior_ok:
+        raise SystemExit("poke_vae: the card's forward disagrees with the CPU's or the prior "
+                         "sample is off")
+    del gen_sn, x_hat, prior
+
+    out = {"poke_vae": pv, "batch": b}
+    images = batch["images"]
+    rnn, enc_static, dec = variants.init_rnn_motion(prng.prng_key(0), fs_spec)
+    fc_spec = variants.FCBaselineSpec(
+        z_dim=fs_spec.z_dim, spatial_size=fs_spec.spatial_size, max_frames=fs_spec.max_frames,
+        enc_channels=tuple(fs_spec.enc_channels) + (fs_spec.enc_channels[-1],),
+        dec_channels=(fs_spec.dec_channels[0],) + tuple(fs_spec.dec_channels))
+    fc, me_spec = variants.init_fc_baseline(prng.prng_key(0), fc_spec)
+    for name, fn, tree in (
+            ("rnn_motion", lambda p, x: variants.rnn_motion_forward(
+                first_stage_mod.materialize_spectral_norm(p), x, fs_spec, enc_static, dec,
+                rng=prng.prng_key(7)), rnn),
+            ("fc_baseline", lambda p, x: variants.fc_baseline_forward(
+                first_stage_mod.materialize_spectral_norm(p), x, fc_spec, me_spec,
+                rng=prng.prng_key(7)), fc)):
+        got, errs, _ = _card_vs_cpu(device, fn, tree, images[:1])
+        with torch.no_grad():
+            p_card, x_card = _moved(tree, device), images.to(device)
+            fn(p_card, x_card)
+            _sync(device)
+            t0 = time.perf_counter()
+            frames = fn(p_card, x_card)[0]
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            del p_card, x_card
+        ok = (max(errs) <= VARIANT_TOL and tuple(frames.shape) == tuple(images[:, 1:].shape)
+              and bool(torch.isfinite(frames).all()))
+        n = sum(t.numel() for t in train_ss.float_leaves(tree))
+        log(f"{name} [{card}]: {n / 1e6:.2f} M params, forward at B={b} {ms:.1f} ms; one video "
+            f"on the card against the CPU: max relative error {max(errs):.3g} (tolerance "
+            f"{VARIANT_TOL})")
+        if not ok:
+            raise SystemExit(f"{name}: the card's forward disagrees with the CPU's")
+        out[name] = {"forward_ms": ms, "max_rel_err": max(errs), "params_m": n / 1e6}
+        del frames
+    del rnn, fc
+
+    legacy_out = {}
+    for name, fn, tree, inputs in _legacy_legs(prng.prng_key(0)):
+        got, errs, ms = _card_vs_cpu(device, fn, tree, *inputs)
+        leg = {"ms": ms, "max_rel_err": max(errs)}
+        line = (f"legacy {name} [{card}]: {ms:.2f} ms on the card; against the CPU max relative "
+                f"error {max(errs):.3g} (tolerance {VARIANT_TOL})")
+        ok = max(errs) <= VARIANT_TOL and all(bool(torch.isfinite(g).all()) for g in got)
+        if name in LEGACY_ROUND_TOL:   # the round trip's outputs end the list
+            tol, k = LEGACY_ROUND_TOL[name]
+            leg["round_trip_err"] = max(float((r.cpu() - x).abs().max())
+                                        for r, x in zip(got[-k:], inputs[:k]))
+            line += (f"; inverse(forward(x)) - x max {leg['round_trip_err']:.3g} (tolerance "
+                     f"{tol})")
+            ok = ok and leg["round_trip_err"] <= tol
+        else:
+            ok = ok and float(got[0].abs().max()) <= 1.0
+        log(line)
+        if not ok:
+            raise SystemExit(f"legacy {name}: the card disagrees with the CPU or the round trip fails")
+        legacy_out[name] = leg
+    out["legacy"] = legacy_out
+    n = _counts()
+    if n != (0, 0):
+        raise SystemExit(f"stage1 variants: a kernel launched: K1/K2 {n}")
+    out["launches"] = {"mcf_inverse": n[0], "macow_unit_inverse": n[1]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"stage1 variants: the phase took {out['phase_s']:.1f} s")
+    return out
 
 
 def eval_config(entry, b=BATCH):
@@ -2962,6 +3270,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
         resume = phase_resume(device, card, entry, tmp)
     stage1 = phase_stage1(device, card, entry)
+    stage1_variants = phase_stage1_variants(device, card, entry)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         data = phase_data(device, card, entry, train["step_ms_median"], tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
@@ -2987,6 +3296,7 @@ def main():
              eval_topk_resume_launches=ev["topk_resume"]["launches"][name],
              resume_train_step_launches=resume["launches"][name],
              eval_stage1_test_launches=stage1["test_launches"][name],
+             stage1_variants_launches=stage1_variants["launches"][name],
              image_ae_step_launches=data["img_encoder"]["launches"][name],
              poke_ae_step_launches=data["poke_encoder"]["launches"][name],
              prep_launches=prep["launches"][name],
@@ -3025,6 +3335,8 @@ def main():
     print(json.dumps({"eval": ev}, default=float), flush=True)
     print(json.dumps({"eval2": ev2}, default=float), flush=True)
     print(json.dumps({"stage1": stage1}, default=float), flush=True)
+    print(json.dumps({"stage1_variants": stage1_variants}, default=float), flush=True)
+    print(json.dumps({"stage1_variants_phase_s": stage1_variants["phase_s"]}), flush=True)
     print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)

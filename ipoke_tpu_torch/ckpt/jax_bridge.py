@@ -29,7 +29,11 @@ flow distillation student is a flow tree (``bridge_flow``); a direct
 student has its own pair (``bridge_direct`` / ``unbridge_direct``).  The
 encoder trainers' trees (a tower wrapper with both halves, ``u`` kept, and
 the image AE's patch discriminator) go both ways through ``bridge_wrapper``
-/ ``unbridge_wrapper``.  ``unbridge_second_stage`` is
+/ ``unbridge_wrapper``.  The generators of ``models/variants`` (the PokeVAE
+of the ``poke_vae`` baseline, the RNN and FC models) go through
+``bridge_generator`` / ``unbridge_generator`` (and as ``gen_params``
+through the GAN pair), the legacy flows and generators through
+``bridge_direct`` / ``unbridge_direct``.  ``unbridge_second_stage`` is
 the inverse: the port's params (or any tree of that layout, an optimizer
 moment with None at the integer leaves) back to JAX's layouts as numpy, steps
 stacked and permutations int32, for ``ckpt/io.save``.
@@ -78,6 +82,8 @@ def _convert(tree, device, transposed=False, keep_u=False):
     if isinstance(tree, list):
         return [_convert(v, device, transposed, keep_u) for v in tree]
     a = np.asarray(tree)
+    if a.dtype == np.bool_:     # a flag such as a fully connected net's use_tanh
+        return bool(a)
     if np.issubdtype(a.dtype, np.integer):
         return torch.from_numpy(a.astype(np.int64)).to(device)
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
@@ -125,21 +131,21 @@ def bridge_flow(tree, device=None):
 
 
 def _bridge_first_stage(fs, device, keep_u=False):
-    gen = fs["gen"]
+    """A generator tree: the first stage's, or a variant's of
+    ``models/variants`` (PokeVAE, RNN, FC baseline).  The upsampling res
+    blocks of its decoder (``gen``, or the FC baseline's top-level
+    ``blocks``) hold res_conv and conv1 as transpose convs."""
     conv = lambda t, transposed=False: _convert(t, device, transposed, keep_u)  # noqa: E731
-    out = {
-        "gen": {
-            "in_block": conv(gen["in_block"]),
-            # upsampling res blocks: res_conv and conv1 are transpose convs
-            "blocks": [{k: conv(v, transposed=k != "conv2") for k, v in b.items()}
-                       for b in gen["blocks"]],
-            "spades": conv(gen["spades"]),
-            "out_conv": conv(gen["out_conv"]),
-        },
-    }
-    for key in ("enc_motion", "rnn", "motion_bias"):
-        if key in fs:
-            out[key] = conv(fs[key])
+
+    def ups(bl):
+        return [{k: conv(v, transposed=k != "conv2") for k, v in b.items()} for b in bl]
+
+    out = {}
+    for key, v in fs.items():
+        if key == "gen":
+            out[key] = {n: ups(x) if n == "blocks" else conv(x) for n, x in v.items()}
+        else:
+            out[key] = ups(v) if key == "blocks" else conv(v)
     return out
 
 
@@ -201,8 +207,8 @@ def _export(tree, transposed=False):
                 for k, v in tree.items()}
     if isinstance(tree, list):
         return [_export(v, transposed) for v in tree]
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, bool):
+        return tree
     a = tree.detach().cpu().numpy()
     return a.astype(np.int32) if np.issubdtype(a.dtype, np.integer) else a
 
@@ -229,15 +235,15 @@ def unbridge_flow(flow):
 
 
 def _unbridge_first_stage(fs):
-    gen = fs["gen"]
-    out = {k: _export(v) for k, v in fs.items() if k != "gen"}
-    out["gen"] = {
-        "in_block": _export(gen["in_block"]),
-        "blocks": [{k: _export(v, transposed=k != "conv2") for k, v in b.items()}
-                   for b in gen["blocks"]],
-        "spades": _export(gen["spades"]),
-        "out_conv": _export(gen["out_conv"]),
-    }
+    def ups(bl):
+        return [{k: _export(v, transposed=k != "conv2") for k, v in b.items()} for b in bl]
+
+    out = {}
+    for key, v in fs.items():
+        if key == "gen":
+            out[key] = {n: ups(x) if n == "blocks" else _export(x) for n, x in v.items()}
+        else:
+            out[key] = ups(v) if key == "blocks" else _export(v)
     return out
 
 
@@ -267,13 +273,33 @@ def unbridge_second_stage(params, spec):
 def bridge_direct(tree, device=None):
     """A direct student's JAX tree (or the path of its npz, e.g.
     ``bench_distill --save``) -> the port's params: conv kernels HWIO ->
-    OIHW, the residual blocks a list."""
+    OIHW, the residual blocks a list.  The legacy flows and generators
+    (``flows/{legacy, mixcdf, leapfrog, macow_v1, extras}``,
+    ``models/{biggan, motion_generator}``) bridge the same way: 3D kernels
+    DHWIO -> OIDHW, linear layers ``(in, out)`` as they are, permutations
+    long, flags bool."""
     return _convert(_tree_of(tree), resolve_device(device))
 
 
 def unbridge_direct(params):
     """The inverse of ``bridge_direct``, as numpy for ``ckpt/io.save``."""
     return _export(params)
+
+
+# ---------------------------------------------------------------------------
+# the stage-1 variants
+# ---------------------------------------------------------------------------
+
+def bridge_generator(tree, device=None, keep_u=True):
+    """A generator tree of ``models/variants`` (PokeVAE, RNN, FC baseline)
+    or of ``models/first_stage`` (or the path of its npz) -> the port's,
+    ``u`` kept; its decoder's upsampling blocks are transpose convs."""
+    return _bridge_first_stage(_tree_of(tree), resolve_device(device), keep_u)
+
+
+def unbridge_generator(params):
+    """The inverse of ``bridge_generator``, as numpy for ``ckpt/io.save``."""
+    return _unbridge_first_stage(params)
 
 
 # ---------------------------------------------------------------------------

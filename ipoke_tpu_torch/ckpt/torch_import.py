@@ -23,8 +23,11 @@ state_dict from a tree of that layout and document the key schema.  The
 attention NICE coupling and the ``cond_conv_block`` of a MaCowUnit convert
 as in JAX (NIN projections ``W`` as stored, pos_emb and the LayerNorm's
 affine CHW -> HWC).  As in JAX, no converter reads a multistack flow or a
-conv-LU 1x1 conv.  The legacy flows (MaCow v1, the fully connected flow) are
-not ported: a state_dict that holds their keys raises ``NotImplementedError``.
+conv-LU 1x1 conv.  The legacy flows convert on their own, as in JAX:
+``convert_macow_v1_step`` (a MaCow v1 step, ``flows/macow_v1``) and
+``convert_fc_flow`` (the fully connected ConditionalFlow, ``flows/legacy``);
+as in JAX, ``convert_flow`` refuses a MaCow v2 flow that holds their keys
+(``NotImplementedError`` naming the converter).
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ import torch
 
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
 
-VARIANTS = ("the legacy flows (MaCow v1, the fully connected flow) are not ported yet "
-            "(ROADMAP.md queue 1 item 7.3)")
+LEGACY = ("a legacy flow inside a MaCow v2 flow, which the JAX package does not convert "
+          "either; convert the legacy flow alone with ckpt/torch_import.{}")
 
 
 def _arr(x):
@@ -64,6 +67,10 @@ def convT2d_w(t):
 
 def conv3d_w(t):
     return _arr(np.transpose(np.asarray(t), (2, 3, 4, 1, 0)))
+
+
+def linear_w(t):
+    return _arr(np.transpose(np.asarray(t)))
 
 
 def wn_conv(sd, prefix):
@@ -133,7 +140,8 @@ def group_norm_p(sd, prefix):
 def _mcf(sd, prefix):
     if f"{prefix}.net.masked_conv.conv.weight_v" in sd:
         raise NotImplementedError(
-            f"{prefix}.net.masked_conv.conv.weight_v: a MaCow v1 MCF; {VARIANTS}")
+            f"{prefix}.net.masked_conv.conv.weight_v: a MaCow v1 MCF, "
+            + LEGACY.format("convert_macow_v1_step"))
     return {"net": {"shift_conv": plain_conv(sd, f"{prefix}.net.shift_conv"),
                     "conv1x1": wn_conv(sd, f"{prefix}.net.conv1x1.conv")}}
 
@@ -225,7 +233,8 @@ def convert_flow(sd: Dict[str, np.ndarray], spec, prefix="flow.flow"):
     """MultiScaleInternal state_dict -> the stacked-level flow tree;
     ``spec``: a FlowSpec (its ``num_steps``)."""
     if any(k.startswith(f"{prefix}.sub_layers.") for k in sd):
-        raise NotImplementedError(f"{prefix}.sub_layers.*: a fully connected flow; {VARIANTS}")
+        raise NotImplementedError(f"{prefix}.sub_layers.*: a fully connected flow, "
+                                  + LEGACY.format("convert_fc_flow"))
     levels = []
     for li, n_steps in enumerate(spec.num_steps):
         steps = [_macow_step(sd, f"{prefix}.layers.{li}.{si}") for si in range(n_steps)]
@@ -233,6 +242,69 @@ def convert_flow(sd: Dict[str, np.ndarray], spec, prefix="flow.flow"):
                        "prior": _prior(sd, f"{prefix}.priors.{li}"),
                        "shuffle": shuffle(sd, f"{prefix}.shuffle_layers.{li}")})
     return {"levels": levels}
+
+
+# ---------------------------------------------------------------------------
+# the legacy flows: a MaCow v1 step, the fully connected ConditionalFlow
+# ---------------------------------------------------------------------------
+
+def _mcf_v1(sd, prefix):
+    p = {"shift_conv": wn_conv(sd, f"{prefix}.net.masked_conv.conv"),
+         "conv1x1": wn_conv(sd, f"{prefix}.net.conv1x1.conv")}
+    if f"{prefix}.s_conv.conv.weight_v" in sd:
+        p["s_conv"] = wn_conv(sd, f"{prefix}.s_conv.conv")
+    return p
+
+
+def convert_macow_v1_step(sd, spec, prefix=""):
+    """A MaCow v1 unconditional step -> the ``flows/macow_v1`` tree;
+    ``spec``: a MaCowV1Spec.  The NICE's conv3 (the reference's zero-init
+    conv) is a plain conv."""
+    pre = f"{prefix}." if prefix else ""
+    units = []
+    for i in range(spec.num_units):
+        up = f"{pre}units.{i}"
+        units.append({"actnorm1": actnorm(sd, f"{up}.actnorm1"), "conv1": _mcf_v1(sd, f"{up}.conv1"),
+                      "conv2": _mcf_v1(sd, f"{up}.conv2"), "actnorm2": actnorm(sd, f"{up}.actnorm2"),
+                      "conv3": _mcf_v1(sd, f"{up}.conv3"), "conv4": _mcf_v1(sd, f"{up}.conv4")})
+    gp = f"{pre}glow_step"
+    return {"units": units,
+            "glow": {"actnorm": actnorm(sd, f"{gp}.actnorm"),
+                     "shuffle": shuffle(sd, f"{gp}.conv1x1"),
+                     "nice": {"conv1": wn_conv(sd, f"{gp}.coupling.net.conv1.conv"),
+                              "conv2": wn_conv(sd, f"{gp}.coupling.net.conv2.conv"),
+                              "conv3": plain_conv(sd, f"{gp}.coupling.net.conv3.conv")}}}
+
+
+def _fc_net(sd, prefix, depth, use_tanh):
+    """BasicFullyConnectedNet: its Linear layers at the even Sequential
+    indices 0, 2, ..., 2 (depth + 1), LeakyReLUs between."""
+    return {"layers": [{"w": linear_w(sd[f"{prefix}.main.{2 * j}.weight"]),
+                        "b": _arr(sd[f"{prefix}.main.{2 * j}.bias"])} for j in range(depth + 2)],
+            "use_tanh": use_tanh}
+
+
+def convert_fc_flow(sd, spec, prefix=""):
+    """The fully connected ConditionalFlow -> the ``flows/legacy`` tree;
+    ``spec``: an FCFlowSpec."""
+    pre = f"{prefix}." if prefix else ""
+    blocks = []
+    for i in range(spec.n_flows):
+        bp = f"{pre}sub_layers.{i}"
+        net = lambda kind, j, tanh: _fc_net(sd, f"{bp}.coupling.{kind}.{j}",  # noqa: E731
+                                            spec.hidden_depth, tanh)
+        blocks.append({
+            "actnorm": {"loc": _arr(np.asarray(sd[f"{bp}.norm_layer.loc"]).reshape(-1)),
+                        "scale": _arr(np.asarray(sd[f"{bp}.norm_layer.scale"]).reshape(-1))},
+            "coupling": {"s": [net("s", j, True) for j in range(2)],
+                         "t": [net("t", j, False) for j in range(2)]},
+            "shuffle": shuffle(sd, f"{bp}.shuffle")})
+    p = {"blocks": blocks}
+    if spec.conditioning_option != "none":
+        p["cond_layers"] = [{"w": conv2d_w(sd[f"{pre}conditioning_layers.{i}.weight"]),
+                             "b": _arr(sd[f"{pre}conditioning_layers.{i}.bias"])}
+                            for i in range(spec.n_flows)]
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +604,49 @@ def export_flow(params, spec, prefix="flow.flow"):
         _export_nice(level["prior"]["coupling"], f"{prefix}.priors.{li}.coupling", sd)
         _export_actnorm(level["prior"]["actnorm"], f"{prefix}.priors.{li}.actnorm", sd)
         _export_shuffle(level["shuffle"], f"{prefix}.shuffle_layers.{li}", sd)
+    return sd
+
+
+def export_macow_v1_step(params, spec, prefix=""):
+    """A ``flows/macow_v1`` step tree (JAX's layout) -> the reference-shaped
+    state_dict ``convert_macow_v1_step`` reads."""
+    pre = f"{prefix}." if prefix else ""
+    sd = {}
+    for i, unit in enumerate(params["units"]):
+        up = f"{pre}units.{i}"
+        for name in ("actnorm1", "actnorm2"):
+            _export_actnorm(unit[name], f"{up}.{name}", sd)
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            _export_wn(unit[name]["shift_conv"], f"{up}.{name}.net.masked_conv.conv", sd)
+            _export_wn(unit[name]["conv1x1"], f"{up}.{name}.net.conv1x1.conv", sd)
+            if "s_conv" in unit[name]:
+                _export_wn(unit[name]["s_conv"], f"{up}.{name}.s_conv.conv", sd)
+    gp, glow = f"{pre}glow_step", params["glow"]
+    _export_actnorm(glow["actnorm"], f"{gp}.actnorm", sd)
+    _export_shuffle(glow["shuffle"], f"{gp}.conv1x1", sd)
+    _export_wn(glow["nice"]["conv1"], f"{gp}.coupling.net.conv1.conv", sd)
+    _export_wn(glow["nice"]["conv2"], f"{gp}.coupling.net.conv2.conv", sd)
+    _export_conv(glow["nice"]["conv3"], f"{gp}.coupling.net.conv3.conv", sd)
+    return sd
+
+
+def export_fc_flow(params, spec, prefix=""):
+    """A ``flows/legacy`` FC flow tree (JAX's layout) -> the reference-shaped
+    state_dict ``convert_fc_flow`` reads (the actnorm as (1, C, 1, 1))."""
+    pre = f"{prefix}." if prefix else ""
+    sd = {}
+    for i, blk in enumerate(params["blocks"]):
+        bp = f"{pre}sub_layers.{i}"
+        for name in ("loc", "scale"):
+            sd[f"{bp}.norm_layer.{name}"] = np.asarray(blk["actnorm"][name]).reshape(1, -1, 1, 1)
+        for kind in ("s", "t"):
+            for j, net in enumerate(blk["coupling"][kind]):
+                for k, layer in enumerate(net["layers"]):
+                    sd[f"{bp}.coupling.{kind}.{j}.main.{2 * k}.weight"] = np.asarray(layer["w"]).T
+                    sd[f"{bp}.coupling.{kind}.{j}.main.{2 * k}.bias"] = np.asarray(layer["b"])
+        _export_shuffle(blk["shuffle"], f"{bp}.shuffle", sd)
+    for i, cl in enumerate(params.get("cond_layers", [])):
+        _export_conv(cl, f"{pre}conditioning_layers.{i}", sd)
     return sd
 
 

@@ -27,9 +27,19 @@ def load_yaml(path):
 
 
 def save_yaml(cfg, path):
+    """``cfg`` to ``path`` through a temporary file beside it, renamed over
+    it: a process reading ``path`` meanwhile (two entry points starting on
+    one run, each saving its config) sees the old file or the new one,
+    never a truncated one."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
-        _yaml().safe_dump(cfg, f, sort_keys=False)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            _yaml().safe_dump(cfg, f, sort_keys=False)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_parameters(config_path, model_name, base_dir=None, restart=False, test_mode="none"):

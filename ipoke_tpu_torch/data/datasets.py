@@ -50,7 +50,7 @@ def _check_native():
     if os.environ.get("IPOKE_NATIVE") == "1":
         raise NotImplementedError(
             "IPOKE_NATIVE=1: the native loader (native/dataio.cpp) is not ported; its libpng "
-            "headers are missing on the card's machine (ROADMAP queue 1 item 6)")
+            "headers are missing on the card's machine (ROADMAP queue 1 item 4)")
 
 
 def _bilinear_resize_np(x, size):

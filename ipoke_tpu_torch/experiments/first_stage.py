@@ -7,8 +7,9 @@ data (``data/datamodule.StaticDataModule``), validated at each epoch's end
 by FVD, SSIM, PSNR and LPIPS of the reconstructions, and keeps the top-k
 checkpoints by ``FVD-val`` and
 ``last.npz`` in JAX's npz layout; ``test`` validates the best checkpoint.
-The ``poke_vae`` baseline waits for ``models/variants`` (ROADMAP queue 1
-item 8).
+``architecture.baseline: poke_vae`` trains the PokeVAE cVAE baseline of
+``models/variants`` (``stack_motion_and_poke`` read from ``architecture``)
+in the generator's place, under the same recipe, as the JAX experiment does.
 
     python -m ipoke_tpu_torch.experiments.first_stage {train,test} -c <cfg> -m <name> \
         [--max-steps N] [--device cpu]
@@ -35,7 +36,7 @@ from ipoke_tpu_torch.experiments.base import MONITOR, debug_shrink, fit, train_l
 from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
 from ipoke_tpu_torch.metrics.image import psnr, ssim_video
 from ipoke_tpu_torch.metrics.lpips import lpips_video
-from ipoke_tpu_torch.models import first_stage
+from ipoke_tpu_torch.models import first_stage, variants
 from ipoke_tpu_torch.models.discriminators import PatchDiscSpec, TempDiscSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.train import first_stage as train_fs
@@ -103,10 +104,24 @@ def restore_gan_state(tree, optimizers, template: train_fs.GanTrainState, device
                                   *(opts[n] for n in train_fs.NETS))
 
 
-def _check_baseline(config):
-    if config.get("architecture", {}).get("baseline", "spade") != "spade":
-        raise NotImplementedError("the poke_vae baseline waits for models/variants "
-                                  "(ROADMAP queue 1 item 8)")
+def poke_vae_spec(config, fs_spec):
+    """The PokeVAESpec of a config with ``architecture.baseline: poke_vae``,
+    else None (the SPADE generator), as the JAX experiment picks them."""
+    arch = config.get("architecture", {})
+    if arch.get("baseline", "spade") != "poke_vae":
+        return None
+    return variants.PokeVAESpec(first_stage=fs_spec,
+                                stack_motion_and_poke=bool(arch.get("stack_motion_and_poke", False)))
+
+
+def generator_forward(config, fs_spec):
+    """``forward(gen_params_sn, batch, rng) -> (x_hat, mu, logvar)`` of the
+    config's generator: the PokeVAE's on images and poke, or the first
+    stage's on the images."""
+    pv_spec = poke_vae_spec(config, fs_spec)
+    if pv_spec is not None:
+        return lambda p, batch, rng: variants.poke_vae_forward(p, batch, pv_spec, rng=rng)
+    return lambda p, batch, rng: first_stage.forward(p, batch["images"], fs_spec, rng=rng)
 
 
 @torch.no_grad()
@@ -115,7 +130,8 @@ def validate(gen_params, fs_spec, config, datamod, timings=None):
     1..T-1 over the first ``training.max_val_batches`` batches of the val
     split, as JAX's ``FirstStageExperiment.validate``: the spectral-normed
     generator's ``forward`` on key ``split`` of ``prng_key(7)`` per batch,
-    FVD over ``logging.n_samples_fvd`` videos at most.  Returns
+    FVD over ``logging.n_samples_fvd`` videos at most; the ``poke_vae``
+    baseline's ``poke_vae_forward`` on each batch's images and poke.  Returns
     ``FVD-val``, ``ssim-val``, ``psnr-val`` and ``lpips-val``."""
     device = params_device(gen_params)
     clock = Clock(device, timings)
@@ -124,14 +140,17 @@ def validate(gen_params, fs_spec, config, datamod, timings=None):
     ssims, psnrs, lps = [], [], []
     rng = prng.prng_key(7)
     gen_sn = first_stage.materialize_spectral_norm(gen_params)
+    forward = generator_forward(config, fs_spec)
+    keys = ("images", "poke") if poke_vae_spec(config, fs_spec) else ("images",)
     max_batches = int(config["training"].get("max_val_batches", 100))
     for bi, raw in enumerate(datamod.loader("val")):
         if bi >= max_batches:
             break
-        x = torch.from_numpy(raw["images"]).to(device)
+        batch = {k: torch.from_numpy(np.asarray(raw[k])).to(device) for k in keys}
+        x = batch["images"]
         rng, sub = prng.split(rng)
         t0 = time.perf_counter()
-        x_hat, _, _ = first_stage.forward(gen_sn, x, fs_spec, rng=sub)
+        x_hat, _, _ = forward(gen_sn, batch, sub)
         clock.add("sampling_s", t0)
         t0 = time.perf_counter()
         tgt = x[:, 1:]
@@ -163,7 +182,10 @@ def train(config, dirs, device=None, max_steps=None):
     (``general.restart``: the newest version's ``last.npz``, the step
     counter going on from it) are ``experiments/second_stage.train``'s.
 
-    The state from ``init_gan_state(prng_key(seed))``; the optimizers and
+    The state from ``init_gan_state(prng_key(seed))``, its generator and
+    the generator's optimizer replaced, for the ``poke_vae`` baseline, by
+    ``init_poke_vae(prng_key(seed + 1))`` and an optimizer of the same
+    settings on it, as in JAX; the optimizers and
     loss weights from the ``training`` section; the key of step i is
     ``rng, sub = split(rng)``.  ``max_steps`` stops after that many steps of
     this run.  Returns a dict: ``state``, ``specs``, ``ckpt`` (the path of
@@ -173,7 +195,6 @@ def train(config, dirs, device=None, max_steps=None):
     ``step``, its metrics, ``val_s`` and ``save_s``).
     """
     device = resolve_device(device)
-    _check_baseline(config)
     cfg_t = config.setdefault("training", {})
     debug_shrink(config)
     fs_spec, ds_spec, dt_spec, n_spatial = specs_from_config(config)
@@ -181,16 +202,26 @@ def train(config, dirs, device=None, max_steps=None):
     steps_per_epoch = int(cfg_t.get("max_batches_per_epoch", 2000))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    state, opts = train_fs.init_gan_state(
-        prng.prng_key(seed), fs_spec, ds_spec, dt_spec, lr=float(cfg_t.get("lr", 2e-4)),
-        weight_decay=float(cfg_t.get("weight_decay", 1e-5)), gamma=float(cfg_t.get("gamma", 0.98)),
-        steps_per_epoch=steps_per_epoch, device=device)
+    opt_kw = dict(lr=float(cfg_t.get("lr", 2e-4)), weight_decay=float(cfg_t.get("weight_decay", 1e-5)),
+                  gamma=float(cfg_t.get("gamma", 0.98)), steps_per_epoch=steps_per_epoch)
+    state, opts = train_fs.init_gan_state(prng.prng_key(seed), fs_spec, ds_spec, dt_spec,
+                                          device=device, **opt_kw)
+    pv_spec = poke_vae_spec(config, fs_spec)
+    forward_fn = None
+    if pv_spec is not None:
+        gen = variants.init_poke_vae(prng.prng_key(seed + 1), pv_spec, device)
+        for leaf in train_fs.float_leaves(train_fs.trainable(gen)):
+            leaf.requires_grad_(True)
+        opts["gen"] = train_fs.make_gan_optimizer(**opt_kw)
+        state = state._replace(gen_params=gen, gen_opt=opts["gen"].init(train_fs.trainable(gen)))
+        forward_fn = generator_forward(config, fs_spec)
     sync()
     init_s = time.perf_counter() - t0
     step_fn = train_fs.make_gan_train_step(
         fs_spec, ds_spec, dt_spec, opts, w_vgg=float(cfg_t.get("w_vgg", 10.0)),
         w_l1=float(cfg_t.get("w_l1", 10.0)), w_kl=float(cfg_t.get("w_kl", 1e-7)),
-        n_spatial_examples=n_spatial, remat=bool(cfg_t.get("remat", False)))
+        n_spatial_examples=n_spatial, remat=bool(cfg_t.get("remat", False)),
+        forward_fn=forward_fn)
     datamod = StaticDataModule(config["data"])
     ckpt_dir = base.run_dir(config, dirs)
     mgr = io.CheckpointManager(ckpt_dir, monitor=MONITOR,
@@ -229,7 +260,8 @@ def train(config, dirs, device=None, max_steps=None):
 
     start_step = run["state"].step
     n_steps = fit(step, int(cfg_t.get("n_epochs", 100)),
-                  train_loader(datamod, device, ("images",)), steps_per_epoch,
+                  train_loader(datamod, device, ("images", "poke") if pv_spec else ("images",)),
+                  steps_per_epoch,
                   validate=run_validation, max_steps=max_steps, start_step=start_step,
                   run_log=run_log,
                   save_preempted=base.preempt_saver(
@@ -248,7 +280,10 @@ def train(config, dirs, device=None, max_steps=None):
 def load_generator(config, dirs, device=None):
     """The generator of the run's best checkpoint (``find_best``), ``u``
     kept; where no checkpoint holds one, the generator of
-    ``init_gan_state(prng_key(seed))``, as JAX's ``_load_state``."""
+    ``init_gan_state(prng_key(seed))``, as JAX's ``_load_state``.  For the
+    ``poke_vae`` baseline that fallback is the SPADE generator, on which
+    JAX's PokeVAE forward then fails for want of ``poke_enc``: the port
+    raises that KeyError here."""
     device = resolve_device(device)
     fs_spec = specs_from_config(config)[0]
     best = io.find_best(version_dir(dirs["ckpt"]))
@@ -257,6 +292,9 @@ def load_generator(config, dirs, device=None):
         if "gen_params" in tree:
             log.info("loaded the generator of %s", best)
             return bridge_gan_params({"gen_params": tree["gen_params"]}, device)["gen_params"]
+    if poke_vae_spec(config, fs_spec) is not None:
+        raise KeyError("poke_enc: no checkpoint holds a PokeVAE generator, and the fallback of "
+                       "JAX's _load_state, init_gan_state's SPADE generator, has no poke_enc")
     log.warning("no checkpoint holds a generator: JAX's init from seed %s",
                 config["general"].get("seed", 42))
     key = prng.split(prng.prng_key(int(config["general"].get("seed", 42))), 3)[0]
@@ -265,7 +303,6 @@ def load_generator(config, dirs, device=None):
 
 def test(config, dirs, device=None, timings=None):
     """``validate`` on the run's best generator (``load_generator``)."""
-    _check_baseline(config)
     gen_params = load_generator(config, dirs, device)
     return validate(gen_params, specs_from_config(config)[0], config,
                     StaticDataModule(config["data"]), timings=timings)

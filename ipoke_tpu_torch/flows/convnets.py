@@ -30,11 +30,13 @@ from ipoke_tpu_torch.utils import prng
 _MODEL_GROUP = contextvars.ContextVar("ipoke_model_group", default=None)
 
 
-def init_wn_conv(key, kh, kw, c_in, c_out, device="cpu"):
-    """A fresh flow starts as the identity: ``g = 0`` zeroes the output conv."""
+def init_wn_conv(key, kh, kw, c_in, c_out, device="cpu", zero_init=True):
+    """A fresh flow starts as the identity: ``g = 0`` zeroes the output conv;
+    without ``zero_init``, ``g = ||v||`` per output channel (torch's
+    weight_norm init)."""
     v = 0.05 * prng.normal(key, (kh, kw, c_in, c_out), device)
-    return {"v": core.from_hwio(v), "g": torch.zeros(c_out, device=device),
-            "b": torch.zeros(c_out, device=device)}
+    g = torch.zeros(c_out, device=device) if zero_init else v.square().sum(dim=(0, 1, 2)).sqrt()
+    return {"v": core.from_hwio(v), "g": g, "b": torch.zeros(c_out, device=device)}
 
 
 def _torch_default_conv(key, shape, device):

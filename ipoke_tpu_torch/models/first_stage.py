@@ -80,12 +80,25 @@ def _cast_floats(tree, dtype):
 
 
 def materialize_spectral_norm(params):
-    """``nn/blocks.materialize_spectral_norm`` over a first-stage tree: the
-    decoder's upsampling blocks hold conv1 and res_conv as transpose convs."""
+    """``nn/blocks.materialize_spectral_norm`` over a generator tree: the
+    first stage's, or a variant's of ``models/variants`` (PokeVAE, RNN, FC
+    baseline).  The upsampling blocks of its decoder (``gen``, or the FC
+    baseline's top-level ``blocks``) hold conv1 and res_conv as transpose
+    convs, normalised along their out axis; every other conv that carries a
+    ``u`` (the PokeVAE's poke encoder, the RNN model's static encoder) along
+    axis 0."""
     sn = blocks.materialize_spectral_norm
-    gen = params["gen"]
-    ups = [{k: sn(v, transposed=k != "conv2") for k, v in b.items()} for b in gen["blocks"]]
-    return dict(params, gen=dict(gen, in_block=sn(gen["in_block"]), blocks=ups))
+
+    def ups(bl):
+        return [{k: sn(v, transposed=k != "conv2") for k, v in b.items()} for b in bl]
+
+    out = {}
+    for k, v in params.items():
+        if k == "gen":
+            out[k] = {n: ups(x) if n == "blocks" else sn(x) for n, x in v.items()}
+        else:
+            out[k] = ups(v) if k == "blocks" else sn(v)
+    return out
 
 
 def encode(params, x, spec: FirstStageSpec, rng=None):

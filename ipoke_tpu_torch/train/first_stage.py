@@ -134,7 +134,7 @@ class GanLosses:
 
     def __init__(self, fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec: TempDiscSpec,
                  w_vgg=10.0, w_l1=10.0, w_kl=1e-7, remat=False, vgg_chunks=1, disc_bf16=False,
-                 vgg: VGG19 = None):
+                 vgg: VGG19 = None, forward_fn=None):
         remat = {False: "none", True: "both"}.get(remat, remat)
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES}")
@@ -142,6 +142,7 @@ class GanLosses:
         self.w_vgg, self.w_l1, self.w_kl = w_vgg, w_l1, w_kl
         self.remat, self.vgg_chunks, self.disc_bf16 = remat, vgg_chunks, disc_bf16
         self.vgg = vgg if vgg is not None else VGG19()
+        self.forward_fn = forward_fn
 
     def _disc(self, apply, spec, params_sn, x):
         if self.disc_bf16:
@@ -155,17 +156,20 @@ class GanLosses:
     def patch_disc(self, params_sn, x):
         return self._disc(D.patch_disc_apply, self.ds_spec, params_sn, x)
 
-    def forward_gen(self, gen_params, x, rng):
-        """(x_hat, mu, logvar) of the spectral-normed generator."""
+    def forward_gen(self, gen_params, x, rng, batch=None):
+        """(x_hat, mu, logvar) of the spectral-normed generator on the videos
+        ``x``: ``first_stage.forward``, or ``forward_fn(params, batch, rng)``
+        where one is given (``batch`` defaults to ``{"images": x}``)."""
         gen_sn = first_stage.materialize_spectral_norm(gen_params)
-
-        def f(p, xx):
-            return first_stage.forward(p, xx, self.fs_spec, rng=rng,
-                                       remat_decode=self.remat in ("decode", "both"))
-
+        if self.forward_fn is not None:
+            batch = {"images": x} if batch is None else batch
+            f = lambda p: self.forward_fn(p, batch, rng)  # noqa: E731
+        else:
+            f = lambda p: first_stage.forward(p, x, self.fs_spec, rng=rng,  # noqa: E731
+                                              remat_decode=self.remat in ("decode", "both"))
         if self.remat in ("outer", "both") and torch.is_grad_enabled():
-            return checkpoint(f, gen_sn, x, use_reentrant=False)
-        return f(gen_sn, x)
+            return checkpoint(f, gen_sn, use_reentrant=False)
+        return f(gen_sn)
 
     def vgg_loss(self, tgt, hat):
         k = self.vgg_chunks
@@ -199,11 +203,11 @@ class GanLosses:
             loss = loss + spec.gp_weight * gp
         return loss, gp
 
-    def gen_loss(self, gen_params, dt_params, ds_params, x, rng, plan):
+    def gen_loss(self, gen_params, dt_params, ds_params, x, rng, plan, batch=None):
         """(loss, logs) of the generator against the given discriminators,
-        which take no gradient."""
+        which take no gradient; ``batch`` reaches a ``forward_fn``."""
         dt_spec, ds_spec = self.dt_spec, self.ds_spec
-        x_hat, mu, logvar = self.forward_gen(gen_params, x, rng)
+        x_hat, mu, logvar = self.forward_gen(gen_params, x, rng, batch)
         x_true, x_fake, _, f_fake = crops(x, x_hat, plan)
         with torch.no_grad():
             dt_sn = materialize_spectral_norm(dt_params)
@@ -229,9 +233,14 @@ class GanLosses:
 
 def make_gan_train_step(fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec: TempDiscSpec,
                         optimizers, w_vgg=10.0, w_l1=10.0, w_kl=1e-7, n_spatial_examples=16,
-                        remat=False, vgg_chunks=1, disc_bf16=False):
+                        remat=False, vgg_chunks=1, disc_bf16=False, forward_fn=None):
     """``train_step(state, batch, rng) -> (state, metrics)``; ``rng`` a JAX
     key (``utils/prng``), batch['images'] (B, T, S, S, 3).
+
+    ``forward_fn(gen_params_sn, batch, rng) -> (x_hat, mu, logvar)``, where
+    given, is the generator's forward in place of ``first_stage.forward``
+    (the ``poke_vae`` baseline's ``models/variants.poke_vae_forward``, which
+    reads batch['poke'] too); ``remat`` "decode" does not reach into it.
 
     ``remat``: ``"outer"`` checkpoints the whole generator forward,
     ``"decode"`` each frame's SPADE decoder, ``"both"`` (or True) both,
@@ -245,7 +254,7 @@ def make_gan_train_step(fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec
     given to ``train_step``, is called with "dt", "ds" and "gen" after each
     net's update (a benchmark records its timing events there)."""
     losses = GanLosses(fs_spec, ds_spec, dt_spec, w_vgg, w_l1, w_kl, remat, vgg_chunks,
-                       disc_bf16)
+                       disc_bf16, forward_fn=forward_fn)
     mf_dt = dt_spec.sequence_length
 
     def train_step(state: GanTrainState, batch, rng, on_phase=lambda name: None):
@@ -253,7 +262,7 @@ def make_gan_train_step(fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec
         r_fwd, r_crop, _ = prng.split(rng, 3)
         plan = crop_plan(r_crop, x.shape[0], x.shape[1], mf_dt, n_spatial_examples)
         with torch.no_grad():   # the generator's output for the discriminator updates
-            x_hat, _, _ = losses.forward_gen(state.gen_params, x, r_fwd)
+            x_hat, _, _ = losses.forward_gen(state.gen_params, x, r_fwd, batch)
         x_true, x_fake, f_true, f_fake = crops(x, x_hat, plan)
 
         loss_dt, gp_dt = losses.disc_loss("dt", state.dt_params, x_true, x_fake)
@@ -267,7 +276,7 @@ def make_gan_train_step(fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec
         on_phase("ds")
 
         loss_g, logs = losses.gen_loss(state.gen_params, state.dt_params, state.ds_params, x,
-                                       r_fwd, plan)
+                                       r_fwd, plan, batch)
         _update(optimizers["gen"], state.gen_opt, state.gen_params,
                 _grads(loss_g, state.gen_params))
         on_phase("gen")

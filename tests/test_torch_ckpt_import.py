@@ -302,7 +302,7 @@ def test_variant_flow_export_round_trip(family):
 def test_legacy_flow_keys_raise(key, what):
     spec, tree = _flow_tree(1)
     sd = dict(ti.export_flow(tree, spec), **{key: np.zeros((2, 2), np.float32)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7.3") as err:
+    with pytest.raises(NotImplementedError, match="ckpt/torch_import.convert_") as err:
         ti.convert_flow(sd, spec)
     assert what in str(err.value)
 

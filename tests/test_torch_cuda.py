@@ -987,3 +987,98 @@ def test_variant_flows_sample_on_the_card(cuda, variant):
     assert bool(torch.isfinite(vids["scan"]).all())
     for backend in ("cuda_unit", "cuda"):
         assert (vids[backend] - vids["scan"]).abs().max().item() <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the poke_vae baseline (models/variants) on the card
+# ---------------------------------------------------------------------------
+
+def _pv_spec(stack):
+    from ipoke_tpu_torch.models.first_stage import FirstStageSpec
+    from ipoke_tpu_torch.models.variants import PokeVAESpec
+
+    return PokeVAESpec(FirstStageSpec(z_dim=16, spatial_size=32, max_frames=3,
+                                      enc_channels=(16,) * 4, dec_channels=(16, 8, 8, 8),
+                                      n_gru_layers=2, min_spatial_size=4), stack)
+
+
+def _pv_batch(dev, dtype=torch.float32):
+    r = np.random.default_rng(0)
+    return {"images": torch.from_numpy(r.uniform(-1, 1, (2, 3, 32, 32, 3))).to(dev, dtype),
+            "poke": torch.from_numpy(r.normal(size=(2, 32, 32, 2))).to(dev, dtype)}
+
+
+def _moved(tree, dev, dtype=torch.float32):
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, dev, dtype) for v in tree]
+    return tree.detach().to(dev, dtype, copy=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stack", [False, True], ids=["poke_in", "stacked"])
+def test_poke_vae_forward_on_the_card_matches_the_cpu(cuda, stack):
+    """``poke_vae_forward`` on the spectral-normed PokeVAE, its posterior
+    draw and ``sample_prior``, on the card against the CPU (oneDNN off) on
+    the same weights: within TOL·(1+max|ref|)."""
+    from ipoke_tpu_torch.models import first_stage, variants
+    from ipoke_tpu_torch.utils import prng
+
+    spec = _pv_spec(stack)
+    p = variants.init_poke_vae(prng.prng_key(1), spec)
+    for prior in (False, True):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
+                outs.append(variants.poke_vae_forward(
+                    first_stage.materialize_spectral_norm(_moved(p, dev)), _pv_batch(dev), spec,
+                    rng=prng.prng_key(2), sample_prior=prior))
+        for a, b in zip(*outs):
+            if b is None:
+                assert a is None and prior
+                continue
+            assert a.is_cuda and (a.cpu() - b).abs().max() <= TOL * (1 + b.abs().max()), prior
+
+
+@pytest.mark.gpu
+def test_poke_vae_gan_step_on_the_card_matches_the_cpu(cuda):
+    """One stage-1 GAN step with the PokeVAE forward (``forward_fn``) on the
+    card and on the CPU from the same weights: every metric within
+    TOL·(1+|ref|) in f32; in f64 also the generator's gradients (2 x Adam's
+    first moment, weight decay included) within TOL·(1+max|ref|)."""
+    from ipoke_tpu_torch.models import discriminators as D
+    from ipoke_tpu_torch.models import variants
+    from ipoke_tpu_torch.train import first_stage as tfs
+    from ipoke_tpu_torch.utils import prng
+
+    spec = _pv_spec(False)
+    ds, dt = D.PatchDiscSpec(n_layers=1), D.TempDiscSpec(spatial_size=32, sequence_length=2,
+                                                         layers=(1, 1, 1, 1))
+    cpu = torch.device("cpu")
+    base, _ = tfs.init_gan_state(prng.prng_key(0), spec.first_stage, ds, dt, device=cpu)
+    nets = {"gen": variants.init_poke_vae(prng.prng_key(1), spec), "ds": base.ds_params,
+            "dt": base.dt_params}
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for dev in (cuda, cpu):
+            with torch.backends.mkldnn.flags(enabled=False):
+                p = {n: _moved(v, dev, dtype) for n, v in nets.items()}
+                for v in p.values():
+                    for leaf in tfs.float_leaves(tfs.trainable(v)):
+                        leaf.requires_grad_(True)
+                opts = {n: tfs.make_gan_optimizer(2e-4) for n in tfs.NETS}
+                state = tfs.GanTrainState(0, p["gen"], p["ds"], p["dt"],
+                                          *(opts[n].init(tfs.trainable(p[n])) for n in tfs.NETS))
+                step = tfs.make_gan_train_step(
+                    spec.first_stage, ds, dt, opts, n_spatial_examples=2,
+                    forward_fn=lambda q, b, k: variants.poke_vae_forward(q, b, spec, rng=k))
+                state, metrics = step(state, _pv_batch(dev, dtype), prng.prng_key(3))
+                runs.append(({k: float(v) for k, v in metrics.items()},
+                             [(2 * m).detach().cpu() for m in state.gen_opt[1]["mu"]]))
+        (mc, gc), (mr, gr) = runs
+        for k in mr:
+            assert abs(mc[k] - mr[k]) <= TOL * (1 + abs(mr[k])), (dtype, k, mc[k], mr[k])
+        if dtype == torch.float64:
+            for a, b_ in zip(gc, gr):
+                assert (a - b_).abs().max() <= TOL * (1 + b_.abs().max())

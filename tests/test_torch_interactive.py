@@ -180,3 +180,26 @@ def test_session_matches_jax_session(model):
         ref = np.asarray(jvid)
         assert vid.shape == ref.shape
         assert np.abs(vid - ref).max() <= FLOW_TOL * (1 + np.abs(ref).max())
+
+
+def test_saved_config_is_never_seen_truncated(tmp_path, monkeypatch):
+    """The entry points of one run (``eval.gui`` and ``eval.interactive``
+    started together) each save its config: a reader in the middle of a
+    save sees the old file or the new one, never a truncated one (the GUI
+    child once read an empty config.yaml while the other child wrote it)."""
+    from ipoke_tpu_torch import config
+
+    path = tmp_path / "config" / "config.yaml"
+    config.save_yaml({"general": {"experiment": "a"}}, str(path))
+    yaml_mod, seen = config._yaml(), []
+    real_dump = yaml_mod.safe_dump
+
+    def dump(cfg, f, **kw):
+        seen.append(config.load_yaml(str(path)))   # another process reads meanwhile
+        return real_dump(cfg, f, **kw)
+
+    monkeypatch.setattr(yaml_mod, "safe_dump", dump)
+    config.save_yaml({"general": {"experiment": "b"}}, str(path))
+    assert seen == [{"general": {"experiment": "a"}}]
+    assert config.load_yaml(str(path)) == {"general": {"experiment": "b"}}
+    assert os.listdir(path.parent) == ["config.yaml"]
