@@ -189,6 +189,21 @@ Phases, each fatal on failure:
              mix-CDF and leapfrog flows (round trips, LEGACY_ROUND_TOL), a
              BigGAN and a motion-generator forward at the JAX tests' widths,
              each against the CPU.  No kernel launches in the phase.
+ 10c. tools  the training and quality tools at iper_128's full width on
+             STEPS_PER_LEVEL MaCowSteps per level, params synthesised from
+             seed 0 with flow output gains CROSS_GAIN, B=8: (a) one step of
+             train/chunked's per-level trainer against one of
+             make_train_step from the same params and batch, both with
+             make_optimizer at clip 0 (losses, params and first moments per
+             leaf within PER_LEVEL_TOLS), peak memory of each; (b) the
+             per-level trainer with adafactor and FlowSpec.remat, 1 + 2
+             steps, step ms and peak; (c) utils/profile_decode's stages at
+             B=8, bf16, 3 iterations; (d) utils/bench_e2e at its default
+             geometry with its step counts cut (TOOLS_E2E_ARGS), both K2
+             launches per sampling call and per teacher reverse equal to 4
+             per MaCowStep (counted around each call), K1 none, and K2
+             against its plain version at the loop's level shapes (C=16 and
+             12, MCF hidden 4C, h 64) at every G it takes.
  11. data    the data path on a prepared iPER-layout tree written with
              data/tree (4 videos x 30 frames at 256^2, PNG rows in all five
              filters, so the port's PNG decode and LANCZOS resize run): the
@@ -229,7 +244,7 @@ Phases, each fatal on failure:
  12. report  a JSON line of the variants phase, one of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the stage-1 variants phase and its
-             seconds, one of the resume phase, one of the train phase, one of the distill
+             seconds, one of the tools phase, one of the resume phase, one of the train phase, one of the distill
              and artifact phases, a JSON line of kernels, the card's line,
              and last {"ok": true, "device": {...}}.
 Every time, rate and memory figure printed is this card's, at the power
@@ -241,6 +256,7 @@ import gc
 import http.client
 import importlib.util
 import io as pyio
+import itertools
 import json
 import logging
 import os
@@ -297,9 +313,10 @@ from ipoke_tpu_torch.serve.server import make_handler  # noqa: E402
 from ipoke_tpu_torch.train import distill  # noqa: E402
 from ipoke_tpu_torch.train import encoders as train_enc  # noqa: E402
 from ipoke_tpu_torch.train import first_stage as train_fs  # noqa: E402
+from ipoke_tpu_torch.train import chunked  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.train.lr import second_stage_schedule as lr_schedule  # noqa: E402
-from ipoke_tpu_torch.utils import prng, synth  # noqa: E402
+from ipoke_tpu_torch.utils import bench_e2e, prng, profile_decode, synth  # noqa: E402
 from ipoke_tpu_torch.utils.logging import read_metrics  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
@@ -1847,6 +1864,210 @@ def phase_stage1_variants(device, card, entry, steps=POKE_VAE_STEPS, b=BATCH):
     return out
 
 
+# the tools phase: the per-level trainer against make_train_step after one
+# step (the losses relative; params per leaf relative to 1 + max|p|; first
+# moments per leaf relative to their own max, as parallel/dryrun's cuda legs)
+PER_LEVEL_TOLS = {"loss": 1e-5, "params": 1e-3, "mu": 1e-2}
+TOOLS_ADAFACTOR_STEPS = 2  # timed adafactor steps, after one warm-up step
+TOOLS_DECODE_ITERS = 3
+# bench_e2e at its default geometry (64^2, 10 frames, B=8, flow (4, 4) at
+# hidden 64, h 64, factor 4), step counts cut
+TOOLS_E2E_ARGS = ("--enc-steps", "2", "--steps1", "2", "--steps2", "4", "--eval-every", "2",
+                  "--n-eval", "16", "--distill-steps", "2")
+
+
+def _first_moments(opt_state):
+    return next(s["mu"] for s in opt_state if isinstance(s, dict) and "mu" in s)
+
+
+def _count_calls(module, name, counts):
+    """Wrap ``module.name`` so each call appends its (K1, K2) launches to
+    ``counts``; returns the original, which the caller puts back."""
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        before = _counts()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        after = _counts()
+        counts.append((after[0] - before[0], after[1] - before[1]))
+        return out
+
+    setattr(module, name, counted)
+    return orig
+
+
+def phase_tools(device, card, entry, tmp, b=BATCH):
+    """The per-level trainer, adafactor with remat, profile_decode's stages
+    and the cut bench_e2e loop on the card (docstring, 10c)."""
+    t_phase = time.perf_counter()
+    out = {}
+    spec = cut_spec(registry.build_specs(entry), STEPS_PER_LEVEL)
+    params = synth.synth_params(spec, seed=0, device=device)
+    params["flow"] = synth.set_flow_output_gains(params["flow"], CROSS_GAIN)
+    trainable, frozen = train_ss.split_params(params)
+    if set(trainable) != {"flow"}:
+        raise SystemExit(f"tools: {entry.name} trains {sorted(trainable)}, not the flow alone")
+    (batch, _), = make_requests(device, 1, b, spec, seed=4000)
+
+    def opt():   # make_optimizer at clip 0; no warm-up, so the first step moves the params
+        return train_ss.make_optimizer(lr=1e-3, warmup_steps=0, total_steps=1000)
+
+    def fresh_flow():
+        return _clone(trainable["flow"])
+
+    # (a) per-level against monolithic, one step each from the same params
+    mono_step = train_ss.make_train_step(spec, frozen, opt())
+    mono = train_ss.init_state({"flow": fresh_flow()}, mono_step.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mono, m_mono = mono_step(mono, batch, prng.prng_key(4001))
+    torch.cuda.synchronize()
+    mono_ms = (time.perf_counter() - t0) * 1e3
+    mono_peak = torch.cuda.max_memory_allocated() / 2**30
+    per_level = chunked.make_per_level_trainer(spec.flow, spec, frozen, lambda level: opt())
+    lvl = per_level.init_state(fresh_flow())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvl, m_lvl = per_level(lvl, batch)
+    torch.cuda.synchronize()
+    lvl_ms = (time.perf_counter() - t0) * 1e3
+    lvl_peak = torch.cuda.max_memory_allocated() / 2**30
+    train_launches = _counts()
+    loss_err = {k: abs(float(m_lvl[k]) - float(m_mono[k])) / (1 + abs(float(m_mono[k])))
+                for k in chunked.METRICS}
+    p_lvl = train_ss.float_leaves({"levels": lvl.levels})
+    p_mono = train_ss.float_leaves(mono.params)
+    mu_lvl = [m for s in lvl.opt_states for m in _first_moments(s)]
+    mu_mono = _first_moments(mono.opt_state)
+    start = train_ss.float_leaves(trainable)
+    param_err = max(((a - c).abs().max() / (1 + c.abs().max())).item() for a, c in zip(p_lvl, p_mono))
+    mu_err = max(((a - c).abs().max() / c.abs().max().clamp(min=1e-30)).item()
+                 for a, c in zip(mu_lvl, mu_mono))
+    moved = sum(bool((a != s0).any()) for a, s0 in zip(p_lvl, start))
+    out["per_level"] = {"flow_params": sum(t.numel() for t in start), "leaves": len(p_lvl),
+                        "leaves_moved": moved, "loss": {k: float(m_lvl[k]) for k in chunked.METRICS},
+                        "loss_rel_err": loss_err, "param_rel_err": param_err, "mu_rel_err": mu_err,
+                        "mono_ms": mono_ms, "per_level_ms": lvl_ms, "mono_peak_gib": mono_peak,
+                        "per_level_peak_gib": lvl_peak, "launches": list(train_launches)}
+    log(f"tools [{card}]: per-level against monolithic, {entry.name} at full width on "
+        f"{sum(spec.flow.num_steps)} MaCowSteps ({out['per_level']['flow_params'] / 1e9:.3f} G flow "
+        f"params), B={b}, one step: flow_loss {float(m_lvl['flow_loss']):.6g} against "
+        f"{float(m_mono['flow_loss']):.6g} (relative {max(loss_err.values()):.3g}); params within "
+        f"{param_err:.3g}, first moments within {mu_err:.3g} per leaf ({moved} of {len(p_lvl)} "
+        f"leaves moved); step {mono_ms:.1f} / {lvl_ms:.1f} ms, peak {mono_peak:.2f} / "
+        f"{lvl_peak:.2f} GiB (monolithic / per-level); K1/K2 launches {train_launches}")
+    if not (max(loss_err.values()) <= PER_LEVEL_TOLS["loss"]
+            and param_err <= PER_LEVEL_TOLS["params"] and mu_err <= PER_LEVEL_TOLS["mu"]
+            and moved == len(p_lvl) and train_launches == (0, 0)
+            and len(p_lvl) == len(p_mono) == len(mu_lvl)):
+        raise SystemExit(f"tools: the per-level trainer disagrees with make_train_step: "
+                         f"{out['per_level']}")
+    del mono, mono_step, lvl, per_level, p_lvl, p_mono, mu_lvl, mu_mono
+    torch.cuda.empty_cache()
+
+    # (b) adafactor with remat, 1 + TOOLS_ADAFACTOR_STEPS steps
+    remat_spec = replace(spec, flow=replace(spec.flow, remat=True))
+    ada = chunked.make_per_level_trainer(remat_spec.flow, remat_spec, frozen,
+                                         lambda level: train_ss.adafactor(1e-3))
+    st = ada.init_state(fresh_flow())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ada_ms, losses = [], []
+    for i in range(1 + TOOLS_ADAFACTOR_STEPS):
+        t0 = time.perf_counter()
+        st, m = ada(st, batch)
+        losses.append(float(m["flow_loss"]))
+        torch.cuda.synchronize()
+        ada_ms.append((time.perf_counter() - t0) * 1e3)
+    ada_peak = torch.cuda.max_memory_allocated() / 2**30
+    out["adafactor_remat"] = {"step_ms": ada_ms, "peak_gib": ada_peak, "flow_loss": losses}
+    log(f"tools [{card}]: per-level adafactor with remat: steps "
+        f"{', '.join(f'{x:.1f}' for x in ada_ms)} ms (the first the warm-up), peak "
+        f"{ada_peak:.2f} GiB, flow_loss {', '.join(f'{x:.6g}' for x in losses)}")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"tools: adafactor steps gave a non-finite loss: {losses}")
+    del st, ada, params, trainable, frozen
+    torch.cuda.empty_cache()
+
+    # (c) profile_decode's stages
+    dec = profile_decode.profile(spec.first_stage, b, TOOLS_DECODE_ITERS, "bf16", device=device)
+    stages = {k: v for k, v in dec.items() if isinstance(v, dict)}
+    out["profile_decode"] = dec
+    log(f"tools [{card}]: profile_decode B={b} bf16 (ms, median of {TOOLS_DECODE_ITERS} / "
+        f"pipelined): " + "; ".join(f"{k} {v['s'] * 1e3:.2f} / {v['pipelined_s'] * 1e3:.2f}"
+                                    for k, v in stages.items()))
+    if len(stages) < 6 or not all(v["s"] > 0 and v["flops_counted"] > 0 for v in stages.values()):
+        raise SystemExit(f"tools: profile_decode's report is incomplete: {dec}")
+    torch.cuda.empty_cache()
+
+    # (d) the cut bench_e2e loop, K2 counted around each sampling call and
+    # each teacher reverse
+    t0 = time.perf_counter()
+    per_call = {"sampling": [], "teacher_reverse": []}
+    orig_sample = _count_calls(second_stage, "forward_sample", per_call["sampling"])
+    orig_teacher = _count_calls(distill, "teacher_motion", per_call["teacher_reverse"])
+    try:
+        _zero_counts()
+        e2e = bench_e2e.main(list(TOOLS_E2E_ARGS) + ["--out", os.path.join(tmp, "bench_e2e")])
+        torch.cuda.synchronize()
+        e2e_launches = _counts()
+    finally:
+        second_stage.forward_sample = orig_sample
+        distill.teacher_motion = orig_teacher
+    e2e_s = time.perf_counter() - t0
+    args = bench_e2e.parse_args(list(TOOLS_E2E_ARGS))
+    per_unit = 4 * sum(int(x) for x in args.num_steps.split(","))
+    calls = per_call["sampling"] + per_call["teacher_reverse"]
+    want_calls = (e2e["n_evals"] * -(-args.n_eval // args.batch), args.distill_steps)
+    fvds = e2e["fvd"] + [e2e["fvd_recon_floor"], e2e["distill_signoff"]["student_fvd"]]
+    out["bench_e2e"] = {"s": e2e_s, "launches": list(e2e_launches), "per_call": per_call,
+                        "report": e2e}
+    log(f"tools [{card}]: bench_e2e {' '.join(TOOLS_E2E_ARGS)}: {e2e_s:.1f} s; FVD* "
+        f"{e2e['fvd']} (floor {e2e['fvd_recon_floor']}), student {fvds[-1]}; "
+        f"{len(per_call['sampling'])} sampling calls and {len(per_call['teacher_reverse'])} "
+        f"teacher reverses of {per_unit} K2 launches each; K1/K2 launches {e2e_launches}")
+    if not (all(c == (0, per_unit) for c in calls)
+            and (len(per_call["sampling"]), len(per_call["teacher_reverse"])) == want_calls
+            and e2e_launches == (0, per_unit * len(calls)) == (0, e2e["k2_launches"])
+            and all(v is not None and np.isfinite(v) for v in fvds)):
+        raise SystemExit(f"tools: the bench_e2e loop failed its checks: {out['bench_e2e']}")
+
+    # K2 against its plain version at the loop's level shapes, every G it takes
+    flow = bench_e2e.build_spec(args).flow
+    gen = torch.Generator().manual_seed(4002)
+    rows = []
+    for c in flow.level_channels():
+        weights, an, y, h = unit_inputs(gen, c, flow.h_channels, b, LATENT, device)
+        ref = k2.macow_unit_inverse_plain(y, h, weights, *an)
+        tol = KERNEL_TOL * (1 + ref.abs().max().item())
+        for g in k2_clusters(c, flow.h_channels, LATENT):
+            err = (k2.macow_unit_inverse(y, h, weights, *an, cluster=g) - ref).abs().max().item()
+            rows.append({"c": c, "hc": flow.h_channels, "g": g, "max_abs_err": err, "tol": tol})
+            if not err <= tol:
+                raise SystemExit(f"tools: K2 disagrees with its plain version at C={c}, "
+                                 f"hc={flow.h_channels}, G={g}: {err} > {tol}")
+    out["k2_loop_shapes"] = rows
+    log(f"tools [{card}]: K2 at the loop's shapes against its plain version: "
+        + "; ".join(f"C={r['c']} G={r['g']} {r['max_abs_err']:.3g}" for r in rows)
+        + f" (tolerance {KERNEL_TOL}·(1+max|ref|))")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools [{card}]: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def _clone(tree):
+    """A copy of a param tree's tensors, detached."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.detach().clone()
+
+
 def eval_config(entry, b=BATCH):
     """train_config's model and data at full width, with the eval modes'
     testing section and two val batches per validation."""
@@ -2576,8 +2797,8 @@ def data_config(meta, entry, b=BATCH, augment=False):
 
 def _loader_run(card, device, cfg, n_batches):
     """``n_batches`` batches of fresh ``loader("train")`` epochs through
-    ``device_prefetch``, as a trainer draws them: batches/s, samples/s and
-    the zero-poke share."""
+    ``device_prefetch``, as a trainer draws them, each epoch's sampler cut
+    to the batches taken: batches/s, samples/s and the zero-poke share."""
     dm = StaticDataModule(cfg)
     got, zero, n_epochs = 0, 0, 0
     keys = ("images", "poke", "flow", "sample_ids")
@@ -2585,7 +2806,10 @@ def _loader_run(card, device, cfg, n_batches):
     t0 = time.perf_counter()
     while got < n_batches:
         n_epochs += 1
-        for batch in device_prefetch(dm.loader("train"), device, keys):
+        loader = dm.loader("train")
+        # the epoch's first batches only: no loader work past what is timed
+        loader.sampler = list(itertools.islice(loader.sampler, (n_batches - got) * cfg["batch_size"]))
+        for batch in device_prefetch(loader, device, keys):
             zero += int((batch["sample_ids"] == -1).sum())
             got += 1
             if got == n_batches:
@@ -3271,6 +3495,9 @@ def main():
         resume = phase_resume(device, card, entry, tmp)
     stage1 = phase_stage1(device, card, entry)
     stage1_variants = phase_stage1_variants(device, card, entry)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tools = phase_tools(device, card, entry, tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         data = phase_data(device, card, entry, train["step_ms_median"], tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
@@ -3297,6 +3524,14 @@ def main():
              resume_train_step_launches=resume["launches"][name],
              eval_stage1_test_launches=stage1["test_launches"][name],
              stage1_variants_launches=stage1_variants["launches"][name],
+             tools_train_step_launches=tools["per_level"]["launches"][0 if name == "mcf_inverse"
+                                                                       else 1],
+             tools_e2e_launches=tools["bench_e2e"]["launches"][0 if name == "mcf_inverse" else 1],
+             tools_e2e_launches_per_sampling_call=[
+                 c[0 if name == "mcf_inverse" else 1] for c in tools["bench_e2e"]["per_call"]["sampling"]],
+             tools_e2e_launches_per_teacher_reverse=[
+                 c[0 if name == "mcf_inverse" else 1]
+                 for c in tools["bench_e2e"]["per_call"]["teacher_reverse"]],
              image_ae_step_launches=data["img_encoder"]["launches"][name],
              poke_ae_step_launches=data["poke_encoder"]["launches"][name],
              prep_launches=prep["launches"][name],
@@ -3337,6 +3572,7 @@ def main():
     print(json.dumps({"stage1": stage1}, default=float), flush=True)
     print(json.dumps({"stage1_variants": stage1_variants}, default=float), flush=True)
     print(json.dumps({"stage1_variants_phase_s": stage1_variants["phase_s"]}), flush=True)
+    print(json.dumps({"tools": tools}, default=float), flush=True)
     print(json.dumps({"resume": resume}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"distill": dist, "artifact": art, "op_overhead": overhead}), flush=True)

@@ -10,7 +10,11 @@ Spec options, as in JAX: ``cond_conv`` puts a gated conv on h before each
 MaCowUnit (``cond_conv_block``; K2 then reads the gated h); ``condition_nice``
 feeds h to every NICE coupling; ``attention`` makes the couplings' subnets
 attention blocks; ``use_1x1`` makes the priors' and the levels'
-permutations conv-LU 1x1 convs (the steps' ``conv1x1`` stays a shuffle).
+permutations conv-LU 1x1 convs (the steps' ``conv1x1`` stays a shuffle);
+``remat`` checkpoints each MaCowStep of the forward while grad is enabled
+(``torch.utils.checkpoint``; JAX's ``jax.checkpoint`` of the scanned step
+body), so the backward recomputes a step's activations instead of keeping
+them; the inverse ignores it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ipoke_tpu_torch.flows import actnorm, attention, mcf, nice, permute
 from ipoke_tpu_torch.flows.nice import nice_channels
@@ -46,6 +51,7 @@ class FlowSpec:
     heads: int = 4               # their attention heads
     spatial_size: int = 8        # their positional embedding's and layer norm's H = W
     cond_conv: bool = False      # a gated conv on h before each MaCowUnit
+    remat: bool = False          # checkpoint each MaCowStep of the forward
     # 'scan': plain loop; 'cuda': kernel K1 per MCF; 'cuda_unit': kernel K2
     # per MaCowUnit (the JAX 'scan' / 'pallas' / 'pallas_unit'); a
     # non-affine transform takes the plain loop on each, as in JAX
@@ -291,15 +297,41 @@ def init_multiscale(key, spec: FlowSpec, device="cpu"):
         zip(spec.level_channels(), spec.level_factors(), spec.num_steps))]}
 
 
+def steps_forward(steps, x, h, spec: FlowSpec):
+    """A level's MaCowSteps in order: (out, logdet[B]); each step under
+    ``torch.utils.checkpoint`` when ``spec.remat`` and grad is enabled."""
+    remat = spec.remat and torch.is_grad_enabled()
+    out = x
+    ld = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    for step in steps:
+        if remat:
+            out, l = checkpoint(macow_step_forward, step, out, h, spec, use_reentrant=False)
+        else:
+            out, l = macow_step_forward(step, out, h, spec)
+        ld = ld + l
+    return out, ld
+
+
+def level_forward(level, x, h, c, f, spec: FlowSpec):
+    """One multi-scale level: steps -> prior -> permutation -> split, as
+    JAX's ``train/chunked._level_forward``.  Returns (z1 carry, z2,
+    logdet[B])."""
+    cs = spec.in_channels // spec.factor
+    out, ld = steps_forward(level["steps"], x, h, spec)
+    out, l = prior_forward(level["prior"], out, h, f, spec)
+    ld = ld + l
+    out, l = _perm_fwd(level["shuffle"], out, spec)
+    return out[..., :c - cs], out[..., c - cs:], ld + l
+
+
 def multiscale_forward(p, x, h, spec: FlowSpec):
     cs = spec.in_channels // spec.factor
     out = x
     ld = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     z2s = []
     for level, c, f in zip(p["levels"], spec.level_channels(), spec.level_factors()):
-        for step in level["steps"]:
-            out, l = macow_step_forward(step, out, h, spec)
-            ld = ld + l
+        out, l = steps_forward(level["steps"], out, h, spec)
+        ld = ld + l
         out, l = prior_forward(level["prior"], out, h, f, spec)
         ld = ld + l
         out, l = _perm_fwd(level["shuffle"], out, spec)

@@ -78,19 +78,30 @@ def orthogonal(key, shape, device="cpu"):
         tuple(range(1, len(shape))) + (0,))
 
 
+def _reverse3(w, a, b, c):
+    """``w`` viewed as (a, b, c), returned as a contiguous (c, b, a): two
+    2-D transposes, which copy in cache-sized blocks (a 3-D permute of a
+    large kernel reads with a stride on the CPU, ~4x slower)."""
+    return w.reshape(a, b * c).t().contiguous().view(b, c, a).transpose(0, 1).contiguous()
+
+
 def from_hwio(w, transposed=False):
     """A JAX kernel (HWIO, DHWIO) in the port's layout: OIHW / OIDHW, or
     ``(in, out, kh, kw)`` for a transpose conv."""
-    if w.dim() == 5:
-        return w.permute(4, 3, 0, 1, 2).contiguous()
-    return w.permute((2, 3, 0, 1) if transposed else (3, 2, 0, 1)).contiguous()
+    *k, i, o = w.shape
+    n = math.prod(k)
+    if transposed:   # (K, I*O) -> (I*O, K)
+        return w.reshape(n, i * o).t().contiguous().view(i, o, *k)
+    return _reverse3(w, n, i, o).view(o, i, *k)
 
 
 def to_hwio(w, transposed=False):
     """The inverse of :func:`from_hwio`."""
-    if w.dim() == 5:
-        return w.permute(2, 3, 4, 1, 0).contiguous()
-    return w.permute((2, 3, 0, 1) if transposed else (2, 3, 1, 0)).contiguous()
+    if transposed:
+        i, o, *k = w.shape
+        return w.reshape(i * o, math.prod(k)).t().contiguous().view(*k, i, o)
+    o, i, *k = w.shape
+    return _reverse3(w, o, i, math.prod(k)).view(*k, i, o)
 
 
 def _nchw(x):

@@ -8,18 +8,20 @@ shuffle permutations) get no gradient and no update.
 
 The optimizers are optax's, written out on the float leaves with
 ``torch._foreach_*`` ops: ``torch_adam`` (torch.optim.Adam's coupled L2, its
-amsgrad), ``optax.adam`` (``adam``), ``optax.adamw``, ``optax.adabelief`` and
-``optax.clip_by_global_norm``, each in optax's own formulas (eps, eps_root),
-with optax's step count: the schedule reads the count before the update, so
-the first step runs at lr(0).  The gradients come from autograd;
-microbatches, when asked for, run one after another and their gradients are
-averaged.  ``shard_train_setup`` runs a step over a ``parallel/mesh`` of
+amsgrad), ``optax.adam`` (``adam``), ``optax.adamw``, ``optax.adabelief``,
+``optax.adafactor`` (``adafactor``) and ``optax.clip_by_global_norm``, each
+in optax's own formulas (eps, eps_root), with optax's step count: the
+schedule reads the count before the update, so the first step runs at
+lr(0).  The gradients come from autograd; microbatches, when asked for, run
+one after another and their gradients are averaged.  ``shard_train_setup`` runs a step over a ``parallel/mesh`` of
 processes: data parallel, ZeRO-1, FSDP and tensor parallel.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ipoke_tpu_torch.flows.loss import flow_loss
@@ -198,6 +200,149 @@ class _ScaleBySchedule:
         return torch._foreach_mul(updates, -lr)
 
 
+def _factored_dims(shape, min_dim_size_to_factor=128):
+    """optax's ``_factored_dims``: (d1, d0), the second-largest and the
+    largest axis (a stable sort, as numpy's argsort of a short shape), or
+    None when the second-largest is below ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return order[-2], order[-1]
+
+
+class _ScaleByFactoredRms:
+    """optax.scale_by_factored_rms at its defaults (decay 0.8, offset 0,
+    eps 1e-30): a leaf whose two largest axes are both >= 128 keeps the row
+    and column means of its squared gradients, any other leaf the full
+    second moment; each keeps a (1,) placeholder for the other, as optax."""
+    name = "factored_rms"
+
+    def __init__(self, decay_rate=0.8, step_offset=0, min_dim_size_to_factor=128, eps=1e-30):
+        self.decay_rate, self.step_offset = decay_rate, step_offset
+        self.min_dim, self.eps = min_dim_size_to_factor, eps
+
+    def init(self, params):
+        v_row, v_col, v = [], [], []
+        for p in params:
+            dims = _factored_dims(p.shape, self.min_dim)
+            one = p.new_zeros((1,))
+            if dims is None:
+                v_row.append(one)
+                v_col.append(one.clone())
+                v.append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                v_row.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d0]))
+                v_col.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d1]))
+                v.append(one)
+        return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+
+    def update(self, updates, state, params):
+        # optax's _decay_rate_pow in f32: 1 - (step + 1) ** -0.8
+        t = np.float32(state["count"] - self.step_offset + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
+        out = [None] * len(updates)
+        full = []   # the unfactored leaves, updated together
+        for i, g in enumerate(updates):
+            dims = _factored_dims(g.shape, self.min_dim)
+            if dims is None:
+                full.append(i)
+                continue
+            d1, d0 = dims
+            g2 = g * g + self.eps
+            v_row, v_col = state["v_row"][i], state["v_col"][i]
+            v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1 - decay)
+            v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1 - decay)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+            out[i] = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+        if full:
+            g = [updates[i] for i in full]
+            v = [state["v"][i] for i in full]
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_add_(g2, self.eps)
+            torch._foreach_mul_(v, decay)
+            torch._foreach_add_(v, g2, alpha=1 - decay)
+            for i, u in zip(full, torch._foreach_mul(g, torch._foreach_rsqrt(v))):
+                out[i] = u
+        state["count"] += 1
+        return out
+
+
+def stacked_blocks(tree):
+    """The float leaves of ``tree`` grouped as JAX's tree holds them: the
+    port keeps a level's MaCowSteps as a list (``steps[s]``), JAX stacks
+    them on a leading axis into one leaf, so the leaves that differ only in
+    the index after ``steps`` form one block.  Returns lists of float-leaf
+    indices, in the order of their first leaf."""
+    keys = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, (list, tuple)):
+            stacked = bool(path) and path[-1] == "steps"
+            for i, v in enumerate(t):
+                walk(v, path + ("*" if stacked else i,))
+        elif t is not None and t.is_floating_point():
+            keys.append(path)
+
+    walk(tree, ())
+    blocks = {}
+    for i, k in enumerate(keys):
+        blocks.setdefault(k, []).append(i)
+    return list(blocks.values())
+
+
+def _block_rms(tensors, blocks):
+    """Per block of ``blocks``: sqrt(mean(x**2)) over all its elements, one
+    Python float per tensor (one read of the device)."""
+    sq = torch.stack(torch._foreach_norm(tensors)).float().square().tolist()
+    rms = [0.0] * len(tensors)
+    for block in blocks:
+        r = math.sqrt(sum(sq[i] for i in block) / sum(tensors[i].numel() for i in block))
+        for i in block:
+            rms[i] = r
+    return rms
+
+
+class _ClipByBlockRms:
+    """optax.clip_by_block_rms: ``u / max(1, rms(u) / threshold)`` per block
+    (a leaf of JAX's tree: ``blocks``, set by ``Optimizer.init``)."""
+    name = "clip_block_rms"
+
+    def __init__(self, threshold):
+        self.threshold = threshold
+        self.blocks = None
+
+    def init(self, params):
+        return {}
+
+    def update(self, updates, state, params):
+        rms = _block_rms(updates, self.blocks)
+        return torch._foreach_div(updates, [max(1.0, r / self.threshold) for r in rms])
+
+
+class _ScaleByParamBlockRms:
+    """optax.scale_by_param_block_rms: ``u * max(rms(p), min_scale)`` per
+    block of the params (``blocks``, set by ``Optimizer.init``)."""
+    name = "param_block_rms"
+
+    def __init__(self, min_scale=1e-3):
+        self.min_scale = min_scale
+        self.blocks = None
+
+    def init(self, params):
+        return {}
+
+    def update(self, updates, state, params):
+        rms = _block_rms(params, self.blocks)
+        return torch._foreach_mul(updates, [max(r, self.min_scale) for r in rms])
+
+
 class Optimizer:
     """A chain of gradient transformations over a param tree's float leaves
     (``make_optimizer``'s result).
@@ -214,7 +359,12 @@ class Optimizer:
         self.masked = masked
 
     def init(self, params_tree):
+        """The transforms' states for ``params_tree``; the block transforms
+        of ``adafactor`` take their blocks from it (``stacked_blocks``)."""
         p = float_leaves(params_tree)
+        for t in self.transforms:
+            if hasattr(t, "blocks"):
+                t.blocks = stacked_blocks(params_tree)
         return [t.init(p) for t in self.transforms]
 
     def update(self, grads, state, params):
@@ -244,6 +394,19 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, masked: bool = False) ->
     ``multi_transform``, as JAX wraps it for a flow student)."""
     return Optimizer([_ScaleByAdam(b1, b2), _ScaleBySchedule(lambda count: lr, counted=False)],
                      masked=masked)
+
+
+def adafactor(lr: float) -> Optimizer:
+    """optax.adafactor(lr) at optax 0.2.6's defaults, under
+    ``multi_transform`` with the integer leaves ``set_to_zero``:
+    scale_by_factored_rms, clip_by_block_rms(1.0), a constant scale of lr,
+    scale_by_param_block_rms, scale(-1); no momentum, no decay.  A block is
+    a leaf of JAX's tree, where a level's MaCowSteps are stacked
+    (``stacked_blocks``); the factoring is the same per step, since a
+    leaf is factored only over two axes of at least 128.  ``-lr`` is
+    applied before the param scale, which gives optax's numbers exactly."""
+    return Optimizer([_ScaleByFactoredRms(), _ClipByBlockRms(1.0),
+                      _ScaleBySchedule(lambda count: lr, counted=False), _ScaleByParamBlockRms()])
 
 
 def make_optimizer(lr: float, weight_decay: float = 1e-5, warmup_steps: int = 500,

@@ -19,8 +19,10 @@ or a pool of ``--cond-pool`` batches cycled per step; the held-out
 evaluation draws fresh conditionings and z and reports, for a direct
 student, motion MSE and relative error, per-channel moment match and the
 decoded videos' MSE and PSNR to the teacher's; for a flow student, the
-held-out NLL against the teacher's own and the moment match (JAX's FVD*
-comparison is ROADMAP queue 1 item 2).  Prints one JSON
+held-out NLL against the teacher's own, the moment match, and FVD* (seeded
+I3D without weights, as ``utils/bench_e2e``) between the teacher-decoded
+videos and the student-decoded ones of independent z, in one
+``FVDAccumulator`` over all held-out batches.  Prints one JSON
 line; progress goes to stderr.  Every time is the card's, with its name and
 power limit in the JSON line.
 """
@@ -120,10 +122,19 @@ def main(argv=None):
         return (float(np.max(np.abs(mt.mean(ax) - ms.mean(ax)))),
                 float(np.max(np.abs(mt.std(ax) - ms.std(ax)) / (mt.std(ax) + 1e-8))))
 
+    fvd_acc = []
+
     def evaluate(n_batches):
         """Held-out conds (seeds disjoint from the train pool) and fresh z."""
         out = {}
         rows = []
+        if args.student == "flow":
+            from ipoke_tpu_torch.metrics.fvd import FVDAccumulator
+
+            if not fvd_acc:
+                fvd_acc.append(FVDAccumulator(n_samples=n_batches * b, device=device))
+            acc = fvd_acc[0]
+            acc.reset()
         for j in range(n_batches):
             x0, _, c = make_cond(900_000 + j)
             z = prng.normal(prng.prng_key(800_000 + j), zshape, device)
@@ -146,8 +157,10 @@ def main(argv=None):
                     z2 = prng.normal(prng.prng_key(810_000 + j), zshape, device)
                     nll_t = flow_loss(*transformer.forward(teacher["flow"], spec.flow, mt_t, c))[0]
                     nll_s = flow_loss(*transformer.forward(state["params"], student, mt_t, c))[0]
-                    ms = transformer.reverse(state["params"], student, z2, c).float().cpu().numpy()
+                    ms_t = transformer.reverse(state["params"], student, z2, c)
+                    ms = ms_t.float().cpu().numpy()
                     rows.append({"nll_t": float(nll_t), "nll_s": float(nll_s), "mom": moments(mt, ms)})
+                    acc.update(decode(mt_t, x0), decode(ms_t, x0))
         mean = lambda key, i=None: statistics.mean(  # noqa: E731
             r[key] if i is None else r[key][i] for r in rows)
         if args.student == "direct":
@@ -156,7 +169,9 @@ def main(argv=None):
                    "heldout_video_psnr_to_teacher_db": mean("psnr")}
         else:
             out = {"heldout_student_nll": mean("nll_s"), "teacher_self_nll_floor": mean("nll_t"),
-                   "heldout_nll_gap_nats": mean("nll_s") - mean("nll_t")}
+                   "heldout_nll_gap_nats": mean("nll_s") - mean("nll_t"),
+                   "fvd_star_teacher_vs_student": float(acc.compute()),
+                   "i3d_pretrained": acc.pretrained}
         out.update(heldout_moment_mean_maxdiff=mean("mom", 0),
                    heldout_moment_std_maxreldiff=mean("mom", 1), n_eval_batches=n_batches)
         return out

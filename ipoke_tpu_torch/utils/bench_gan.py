@@ -3,7 +3,7 @@
 
     python -m ipoke_tpu_torch.utils.bench_gan [--model iper_128] [--batch 8] \
         [--iters 5] [--remat-mode none|outer|decode|both] [--vgg-chunks N] \
-        [--disc-bf16] [--n-spatial 16]
+        [--disc-bf16] [--n-spatial 16] [--converge N]
 
 One step is the temporal-disc update (hinge + the gradient penalty's double
 backward), the spatial-disc update, and the generator update (adversarial +
@@ -17,6 +17,11 @@ feature maps + VGG19 + L1 + KL), at the registry model's first-stage width
     and without the gradient penalty (its double backward);
   * one more step in a ``torch.profiler`` window: device busy time, device
     kernels and copies launched, and device time by kernel name;
+  * with ``--converge N``, N more steps on a learnable video distribution
+    drawn on the card (``blob_videos``: a coloured Gaussian blob drifting at
+    a constant velocity over a tinted background, JAX's draws from
+    ``fold_in(prng_key(21), i)``; step keys ``fold_in(prng_key(2), 5000 +
+    i)``), and JAX's curve of the reconstruction, KL and disc losses;
   * one JSON line with these numbers.
 """
 from __future__ import annotations
@@ -37,6 +42,27 @@ from ipoke_tpu_torch.utils import prng
 from ipoke_tpu_torch.utils.profile_sample import TOP, _card, _device_us, _on_device
 
 PHASES = ("dt", "ds", "gen")
+CONVERGE_TRACK = ("l_rec", "l_vgg", "l_kl", "loss", "loss_d_dt", "loss_d_ds")
+
+
+def blob_videos(i, b, t, ss, device):
+    """The --converge batch of step i: JAX's ``make_videos(fold_in(
+    PRNGKey(21), i))``, (b, t, ss, ss, 3) in [-1, 1]."""
+    ks = prng.split(prng.fold_in(prng.prng_key(21), i), 6)
+    c0 = prng.uniform(ks[0], (b, 2), 0.25, 0.75, device)
+    vel = prng.uniform(ks[1], (b, 2), -0.03, 0.03, device)
+    color = prng.uniform(ks[2], (b, 3), 0.3, 1.0, device)
+    tint = prng.uniform(ks[3], (b, 3), -0.6, 0.0, device)
+    sign = torch.sign(prng.normal(ks[4], (b, 3), device))
+    grid = torch.linspace(0.0, 1.0, ss, device=device)
+    gy, gx = torch.meshgrid(grid, grid, indexing="ij")
+    steps = torch.arange(t, dtype=torch.float32, device=device)[None, :, None]
+    ctr = c0[:, None, :] + vel[:, None, :] * steps                      # (B, T, 2)
+    d2 = (gy[None, None] - ctr[..., 0:1, None]) ** 2 + (gx[None, None] - ctr[..., 1:2, None]) ** 2
+    blob = torch.exp(-d2 / (2 * 0.008))
+    vids = (tint[:, None, None, None, :]
+            + sign[:, None, None, None, :] * color[:, None, None, None, :] * blob[..., None])
+    return {"images": torch.clamp(vids, -1.0, 1.0)}
 
 
 def main(argv=None):
@@ -50,6 +76,9 @@ def main(argv=None):
                          "must divide batch * (frames - 1)")
     ap.add_argument("--disc-bf16", action="store_true")
     ap.add_argument("--n-spatial", type=int, default=16)
+    ap.add_argument("--converge", type=int, default=0,
+                    help="after the timed steps, N steps on blob videos drawn on the card, "
+                         "with the loss curves")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_gan: ipoke_tpu_torch: no CUDA device; this benchmark needs the card")
@@ -147,7 +176,31 @@ def main(argv=None):
           f"({100 * busy / prof_ms:.1f}%), {launches} device kernels/copies", flush=True)
     for n, ms, c in rows[:TOP]:
         print(f"  {ms:9.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  x{c:<6d} {n[:100]}")
+    converge = {}
+    if args.converge:
+        curve = []
+        t0 = time.perf_counter()
+        for i in range(args.converge):
+            state, m = step(state, blob_videos(i, b, t, ss, dev), prng.fold_in(rng, 5000 + i))
+            if i % 10 == 0 or i == args.converge - 1:
+                curve.append((i, {k: float(m[k]) for k in CONVERGE_TRACK}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs = [c["l_rec"] for _, c in curve]
+        converge = {
+            "converge_steps": args.converge,
+            "converge_wall_s": round(wall, 1),
+            "l_rec_first": round(recs[0], 4),
+            "l_rec_last": round(recs[-1], 4),
+            "l_rec_min": round(min(recs), 4),
+            "curve_every10": [(i, {k: round(v, 3) for k, v in c.items()})
+                              for i, c in curve[::max(1, len(curve) // 15)]],
+        }
+        print(f"[{card}] converge: {args.converge} steps on blob videos in {wall:.1f} s, l_rec "
+              f"{converge['l_rec_first']} -> {converge['l_rec_last']} (min "
+              f"{converge['l_rec_min']})", flush=True)
     print(json.dumps({
+        **converge,
         "metric": f"stage-1 GAN train step, {label}", "card": card, "init_s": init_s,
         "first_step_ms": first_ms, "median_step_ms": median, "step_ms": step_ms,
         "split_ms": split_med, "dt_grads_ms": gp_ms, "peak_gib": peak, "examples_per_s": b / median * 1e3,

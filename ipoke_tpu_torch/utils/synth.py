@@ -282,3 +282,12 @@ def zero_flow_output_convs(flow_params):
     does: a raw synthetic fill there makes the 50-step reverse overflow.
     Every MCF and NICE coupling is then the identity."""
     return set_flow_output_gains(flow_params, 0.0)
+
+
+def synth_first_stage(fs_spec, seed: int = 0, device=None):
+    """A first stage's params alone (``models/first_stage``'s tree), filled
+    as ``synth_params`` fills them."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return _fill(_first_stage(fs_spec), gen, device)

@@ -39,7 +39,7 @@ from ipoke_tpu_torch.serve.batcher import BatcherConfig, SampleBatcher
 from ipoke_tpu_torch.train import distill
 from ipoke_tpu_torch.utils import prng, synth
 from test_serve_artifact import _spec as jax_artifact_spec
-from torch_port_util import CPU, port_second_stage_spec, t
+from torch_port_util import CPU, jit_o0, port_second_stage_spec, t
 
 S, T, BUCKET = 64, 4, 2
 SAMPLE_TOL = 2e-4
@@ -111,7 +111,7 @@ def test_flow_artifact_matches_live_and_jax(arts):
     assert torch.equal(got, live)
     jx0, jpoke, jz = (jnp.asarray(v) for v in arts["inputs"])
     pj = jax.tree_util.tree_map(jnp.asarray, unbridge_second_stage(arts["pt"], arts["spec"]))
-    ref = jax.jit(lambda p, a, b, c: jss.forward_sample(
+    ref = jit_o0(lambda p, a, b, c: jss.forward_sample(
         p, arts["jspec"], {"images": a[:, None], "poke": b}, None, length=T - 1,
         add_first_frame=True, z=c)[0])(pj, jx0, jpoke, jz)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=SAMPLE_TOL, atol=SAMPLE_TOL)

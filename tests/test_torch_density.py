@@ -25,7 +25,7 @@ from ipoke_tpu_torch.experiments.second_stage import build_spec_from_config
 from ipoke_tpu_torch.flows import actnorm, loss
 from ipoke_tpu_torch.models import motion_encoder, second_stage
 from ipoke_tpu_torch.utils import prng, synth
-from torch_port_util import CPU, port_second_stage_spec, t, tiny_config
+from torch_port_util import CPU, jit_o0, port_second_stage_spec, t, tiny_config
 
 DENSITY_TOL = 2e-4   # the slice's f32 tolerance, relative to 1 + max|ref|
 LOSS_TOL = 1e-5
@@ -62,7 +62,7 @@ def density_model(seed=1, gain=0.05):
 def model():
     pt, spec, pj, jspec, batch = density_model()
 
-    @jax.jit
+    @jit_o0
     def reference(p, b):
         enc = jme.apply(p["first_stage"]["enc_motion"], b["images"], jspec.first_stage.encoder_spec)
         out, logdet, cond = jss.forward_density(p, jspec, b)

@@ -10,7 +10,8 @@ direct student (hidden 32, depth 2) and a flow student of one step per
 level.  The teacher's MCF
 inverses run on the default backend ``'cuda_unit'``, whose custom op takes
 K2's plain version on CPU tensors.  Every JAX reference with a gradient
-comes from one jitted function per student kind.
+comes from one jitted function per student kind, compiled at XLA's backend
+optimisation level 0 (``torch_port_util.jit_o0``).
 
 * ``init_direct`` within 1e-6·(1+|ref|); ``direct_apply`` on the trained
   student of ``artifacts/student_direct.npz`` at its full width within
@@ -50,7 +51,8 @@ from ipoke_tpu_torch.train import distill
 from ipoke_tpu_torch.train.second_stage import adam, float_leaves
 from ipoke_tpu_torch.utils import prng, synth
 from test_serve_artifact import _spec as jax_teacher_spec
-from torch_port_util import CPU, clone_tree, flatten, np_tree, port_second_stage_spec, t
+from torch_port_util import (CPU, clone_tree, flatten, jit_o0, np_tree, port_second_stage_spec,
+                             t)
 
 ROOT = Path(__file__).resolve().parents[1]
 STUDENT_NPZ = ROOT / "artifacts" / "student_direct.npz"
@@ -105,7 +107,7 @@ def _jax_runs(kind, tch, student_j, sp_j):
     jspec, cond = tch["jspec"], jnp.asarray(tch["cond"].numpy())
     loss_fn = jdistill.direct_loss if kind == "direct" else jdistill.flow_student_loss
 
-    @jax.jit
+    @jit_o0
     def run(sp, tp, zs):
         out = {}
         if kind == "direct":
@@ -300,7 +302,7 @@ def student_samples(teacher, direct):
     _, sp, _ = direct
     js = jdistill.DirectStudentSpec(hidden=32, depth=2)
 
-    @jax.jit
+    @jit_o0
     def run(p, sp_j, batch, z, key):
         sample = lambda **kw: jdistill.forward_sample_student(  # noqa: E731
             p, sp_j, js, teacher["jspec"], batch, **kw)

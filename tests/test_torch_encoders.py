@@ -50,7 +50,7 @@ from ipoke_tpu_torch.train import encoders as te
 from ipoke_tpu_torch.train.first_stage import trainable
 from ipoke_tpu_torch.train.second_stage import float_leaves
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, flatten, np_tree
+from torch_port_util import CPU, flatten, jit_o0, np_tree
 
 TOL = 2e-4          # tests/test_torch_gan.py: relative to 1 + max|ref|
 PARAM_TOL = 1e-6
@@ -89,7 +89,7 @@ def variational():
 
 def test_init_wrapper_draws_jax_params(variational):
     jspec, spec, params, jtree, _ = variational
-    want = np_tree(jax.jit(lambda k: je.init_wrapper(k, jspec))(jax.random.PRNGKey(4)))
+    want = np_tree(jit_o0(lambda k: je.init_wrapper(k, jspec))(jax.random.PRNGKey(4)))
     got = flatten(jtree)
     assert got.keys() == flatten(want).keys()
     for k, w in flatten(want).items():

@@ -41,7 +41,8 @@ from ipoke_tpu_torch.nn.core import spectral_normalize
 from ipoke_tpu_torch.train import first_stage as tfs
 from ipoke_tpu_torch.train.second_stage import Optimizer, float_leaves
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, GAN_BATCH, GAN_FS, clone_tree, flatten, gan_specs, np_tree, random_like, t
+from torch_port_util import (CPU, GAN_BATCH, GAN_FS, clone_tree, flatten, gan_specs, jit_o0, np_tree,
+                             random_like, t)
 
 TOL = 2e-4
 FWD_KEY, STEP_KEY = 5, 21
@@ -56,7 +57,7 @@ def _no_onednn():
         yield
 
 
-@jax.jit
+@jit_o0
 def jax_forward(gen, x, key):
     """JAX's forward of the spectral-normed generator with a key."""
     return jfs.forward(jmaterialize(gen), x, JFS_SPEC, rng=key)
@@ -103,7 +104,7 @@ def case():
                 + 10.0 * logs["l_rec"] + 1e-7 * logs["l_kl"])
         return loss, dict(logs, loss=loss)
 
-    @jax.jit
+    @jit_o0
     def reference(nets, x):
         (_, logs), grads = jax.value_and_grad(gen_loss, has_aux=True)(
             nets["gen_params"], nets["dt_params"], nets["ds_params"], x)

@@ -28,7 +28,7 @@ from ipoke_tpu_torch.flows import transforms
 from ipoke_tpu_torch.flows.multistack import StackSpec
 from ipoke_tpu_torch.nn import core
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, np_tree, port_flow_spec, set_wn_gains, t
+from torch_port_util import CPU, jit_o0, np_tree, port_flow_spec, set_wn_gains, t
 
 TOL = 2e-4
 B, S, C, HID, HC = 2, 8, 8, 16, 16
@@ -68,7 +68,7 @@ def _step0(pt, pj):
 
 def _jit(fn, *static):
     """``fn(*args, *static)`` jitted: one compile, not one per eager op."""
-    return jax.jit(lambda *args: fn(*args, *static))
+    return jit_o0(lambda *args: fn(*args, *static))
 
 
 def _hwio(tree):
@@ -166,7 +166,7 @@ def test_gated_conv_and_attention_layer_match_jax():
     _assert_init_close(_hwio(p), ref)
     x, xc = _data(3, hc=4)
     _close(attention.gated_conv_apply(p, t(x), t(xc)),
-           jax.jit(jattn.gated_conv_apply)(ref, jnp.asarray(x), jnp.asarray(xc)))
+           jit_o0(jattn.gated_conv_apply)(ref, jnp.asarray(x), jnp.asarray(xc)))
     pb = attention.init_conv_attn_block(prng.prng_key(k + 1), HID, S)
     ref_b = jattn.init_conv_attn_block(jax.random.PRNGKey(k + 1), HID, S)
     _assert_init_close(_hwio(pb), ref_b)
@@ -195,12 +195,12 @@ def test_attention_nice_coupling_matches_jax():
     x, h = _data(5)
     ckw = dict(in_channels=C, split_type="skip", order="down", heads=2)
     y, ld = nice.forward(p, t(x), t(h), **ckw)
-    ref_y, ref_ld = jax.jit(lambda *a: jnice.forward(*a, **ckw))(ref, jnp.asarray(x),
+    ref_y, ref_ld = jit_o0(lambda *a: jnice.forward(*a, **ckw))(ref, jnp.asarray(x),
                                                                   jnp.asarray(h))
     _close(y, ref_y)
     _close(ld, ref_ld)
     _close(nice.inverse(p, y, t(h), **ckw),
-           jax.jit(lambda *a: jnice.inverse(*a, **ckw))(ref, ref_y, jnp.asarray(h)))
+           jit_o0(lambda *a: jnice.inverse(*a, **ckw))(ref, ref_y, jnp.asarray(h)))
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +306,7 @@ def test_multistack_matches_jax(reshape, factors):
     pt = bridge_flow(np_tree(pj), CPU)
     x, h = _data(12, c=c)
     y, ld = transformer.forward(pt, spec, t(x), t(h))
-    ref_y, ref_ld = jax.jit(lambda *a: jmultistack.forward(*a, jspec))(
+    ref_y, ref_ld = jit_o0(lambda *a: jmultistack.forward(*a, jspec))(
         pj, jnp.asarray(x), jnp.asarray(h))
     _close(y, ref_y)
     _close(ld, ref_ld)

@@ -21,7 +21,7 @@ from ipoke_tpu_torch.models import first_stage as pfs
 from ipoke_tpu_torch.train import first_stage as tfs
 from ipoke_tpu_torch.train.second_stage import float_leaves
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, flatten, gan_specs, np_tree
+from torch_port_util import CPU, flatten, gan_specs, jit_o0, np_tree
 
 INIT_TOL = 1e-6
 
@@ -34,7 +34,7 @@ def test_init_gan_state_draws_jax_nets():
 
     kb = jax.random.split(jax.random.split(k1, 4)[2], 2 * 3 + 2)   # the decoder's keys
 
-    @jax.jit
+    @jit_o0
     def reference(k2, k3, kb):
         # the decoder's in_block and first upsampling block: the spectral norm
         # threaded through init_res_block (the other blocks are the same code)

@@ -31,7 +31,7 @@ from ipoke_tpu_torch.ckpt.jax_bridge import bridge_direct, unbridge_direct
 from ipoke_tpu_torch.flows import extras, leapfrog, legacy, macow_v1, mixcdf
 from ipoke_tpu_torch.models import biggan, motion_generator
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, assert_trees_equal, flatten, np_tree, t
+from torch_port_util import CPU, assert_trees_equal, flatten, jit_o0, np_tree, t
 
 TOL = 2e-4
 
@@ -91,11 +91,11 @@ def test_fc_flow_matches_jax(option):
     x, emb = _normal(2, 4, 16), _normal(3, 4, 8)
     z, ld = legacy.fc_flow_forward(p, spec, t(x), t(emb))
     # the nets' use_tanh flags are Python bools: the params go in as constants
-    zj, ldj = jax.jit(lambda a, e: jlegacy.fc_flow_forward(pj, jspec, a, e))(x, emb)
+    zj, ldj = jit_o0(lambda a, e: jlegacy.fc_flow_forward(pj, jspec, a, e))(x, emb)
     _close(z, zj)
     _close(ld, ldj)
     back = legacy.fc_flow_inverse(p, spec, z, t(emb))
-    _close(back, jax.jit(lambda a, e: jlegacy.fc_flow_inverse(pj, jspec, a, e))(zj, emb))
+    _close(back, jit_o0(lambda a, e: jlegacy.fc_flow_inverse(pj, jspec, a, e))(zj, emb))
     np.testing.assert_allclose(back.numpy(), x, rtol=1e-4, atol=1e-4)
     key = prng.prng_key(4)
     _close(legacy.fc_flow_sample(p, spec, key, t(emb)),
@@ -129,7 +129,7 @@ def test_mixlogcdf_and_its_bisection_match_jax():
     _close(mixcdf.mix_log_pdf(t(x), *args), jmixcdf.mix_log_pdf(x, logits, means, logscales))
     x_rec = mixcdf.inv_mixlogcdf(y, *args, n_iter=80)
     np.testing.assert_allclose(x_rec.numpy(), x, atol=1e-3)
-    ref = jax.jit(jmixcdf.inv_mixlogcdf)(jnp.asarray(y.numpy()), logits, means, logscales)
+    ref = jit_o0(jmixcdf.inv_mixlogcdf)(jnp.asarray(y.numpy()), logits, means, logscales)
     _close(mixcdf.inv_mixlogcdf(y, *args), ref, 1e-5)
 
 
@@ -140,13 +140,13 @@ def test_mixcdf_flow_matches_jax():
     pj = _jax(p)
     x = _normal(11, 2, 8, 8, 8)
     z, ld = mixcdf.flow_forward(p, t(x), spec)
-    zj, ldj = jax.jit(lambda p_, a: jmixcdf.flow_forward(p_, a, jspec))(pj, x)
+    zj, ldj = jit_o0(lambda p_, a: jmixcdf.flow_forward(p_, a, jspec))(pj, x)
     _close(z, zj)
     _close(ld, ldj)
     assert bool(torch.isfinite(ld).all())
     back = mixcdf.flow_inverse(p, z, spec)
     np.testing.assert_allclose(back.numpy(), x, atol=5e-3)
-    _close(back, jax.jit(lambda p_, a: jmixcdf.flow_inverse(p_, a, jspec))(pj, zj), 1e-3)
+    _close(back, jit_o0(lambda p_, a: jmixcdf.flow_inverse(p_, a, jspec))(pj, zj), 1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +160,7 @@ def test_leap_flow_matches_jax_and_preserves_volume():
     pj = _jax(p)
     x, v = _normal(22, 4, 12), _normal(23, 4, 12)
     x1, v1, ld = leapfrog.leap_flow_forward(p, spec, t(x), t(v))
-    ref = jax.jit(lambda a, b: jleapfrog.leap_flow_forward(pj, jspec, a, b))(x, v)
+    ref = jit_o0(lambda a, b: jleapfrog.leap_flow_forward(pj, jspec, a, b))(x, v)
     for got, want in zip((x1, v1, ld), ref):
         _close(got, want)
     expected = sum(float(torch.log(blk[k]["scale"].abs()).sum())
@@ -193,12 +193,12 @@ def test_macow_v1_step_matches_jax(s_channels):
     s = _normal(2, 2, 8, 8, s_channels) if s_channels else None
     st = None if s is None else t(s)
     y, ld = macow_v1.step_v1_forward(p, t(x), spec, st)
-    yj, ldj = jax.jit(lambda p_, a, c: jmacow_v1.step_v1_forward(p_, a, jspec, c))(pj, x, s)
+    yj, ldj = jit_o0(lambda p_, a, c: jmacow_v1.step_v1_forward(p_, a, jspec, c))(pj, x, s)
     _close(y, yj)
     _close(ld, ldj)
     back = macow_v1.step_v1_inverse(p, y, spec, st)
     np.testing.assert_allclose(back.numpy(), x, atol=2e-4)
-    ref = jax.jit(lambda p_, a, c: jmacow_v1.step_v1_inverse(p_, a, jspec, c))(pj, yj, s)
+    ref = jit_o0(lambda p_, a, c: jmacow_v1.step_v1_inverse(p_, a, jspec, c))(pj, yj, s)
     _close(back, ref)
 
 
@@ -272,7 +272,7 @@ def test_motion_generator_matches_jax():
     with torch.no_grad():
         vid = motion_generator.apply(p, t(img), t(motion), spec)
     assert vid.shape == (2, 2, 64, 64, 3) and float(vid.abs().max()) <= 1.0
-    ref = jax.jit(lambda p_, a, m: jmg.apply(p_, a, m, jspec))(_jax(p), img, motion)
+    ref = jit_o0(lambda p_, a, m: jmg.apply(p_, a, m, jspec))(_jax(p), img, motion)
     _close(vid, ref)
 
 
@@ -287,7 +287,7 @@ def test_biggan_matches_jax():
         with torch.no_grad():
             img = biggan.apply(p, t(z), t(c), spec)
         assert img.shape == (2, 64, 64, 3) and float(img.abs().max()) <= 1.0
-        _close(img, jax.jit(lambda p_, a, e: jbiggan.apply(p_, a, e, jspec))(pj, z, c))
+        _close(img, jit_o0(lambda p_, a, e: jbiggan.apply(p_, a, e, jspec))(pj, z, c))
 
 
 def test_biggan_attention_matches_jax():

@@ -85,3 +85,21 @@ def test_permutation_matches_jax(seed, n):
 def test_permutation_refuses_a_second_sort_round():
     with pytest.raises(NotImplementedError, match="sort rounds"):
         prng.permutation(prng.prng_key(0), 2**22)
+
+
+def test_sliced_cpu_draws_equal_the_draw_in_one_pass(monkeypatch):
+    """A large CPU draw is hashed and mapped slice by slice (``_CPU_SLICE``);
+    every element comes from its own counter, so the numbers are the same
+    bitwise as one pass, and JAX's."""
+    key, shape = prng.fold_in(prng.prng_key(5), 3), (3, 7, 11)
+    draws = {"bits": lambda: prng.random_bits(key, shape),
+             "uniform": lambda: prng.uniform(key, shape, -0.5, 2.0),
+             "normal": lambda: prng.normal(key, shape)}
+    monkeypatch.setattr(prng, "_CPU_SLICE", 1 << 30)
+    whole = {k: f() for k, f in draws.items()}
+    monkeypatch.setattr(prng, "_CPU_SLICE", 16)
+    for k, f in draws.items():
+        assert torch.equal(f(), whole[k]), k
+    jkey = jax.random.fold_in(_jax_key(5), 3)
+    np.testing.assert_array_equal(whole["bits"].numpy(),
+                                  np.asarray(jax.random.bits(jkey, shape, jnp.uint32)))

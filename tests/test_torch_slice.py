@@ -23,7 +23,7 @@ from ipoke_tpu_torch import registry
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage, unbridge_second_stage
 from ipoke_tpu_torch.models import second_stage
 from ipoke_tpu_torch.utils import prng, synth
-from torch_port_util import CPU, np_tree, port_second_stage_spec, set_wn_gains, t
+from torch_port_util import CPU, jit_o0, np_tree, port_second_stage_spec, set_wn_gains, t
 
 B, T, S = 2, 3, 32
 F32_TOL = 2e-4      # the flow's tolerance; the decode adds only convs and norms
@@ -74,7 +74,14 @@ def _within(out, ref, bounds):
 
 # JAX's sampler jitted, as JAX's own test modes run it: one compile per
 # spec and sample count takes about half the time of its eager dispatch here
-_jax_forward_sample = jax.jit(jss.forward_sample, static_argnums=(1,), static_argnames=("n_samples",))
+# (at XLA's backend optimisation level 0, ``jit_o0``)
+_JAX_SAMPLERS = {}
+
+
+def _jax_forward_sample(p, jspec, batch, key, z=None, n_samples=1):
+    fn = _JAX_SAMPLERS.setdefault((jspec, n_samples), jit_o0(
+        lambda p_, b_, k_, z_: jss.forward_sample(p_, jspec, b_, k_, z=z_, n_samples=n_samples)))
+    return fn(p, batch, key, z)
 
 
 def _jax_sample(p, jspec, batch, z):

@@ -41,7 +41,7 @@ from ipoke_tpu_torch.train import lr
 from ipoke_tpu_torch.train import second_stage as train
 from ipoke_tpu_torch.utils import prng
 from test_torch_density import density_model
-from torch_port_util import CPU, clone_tree, flatten, np_tree
+from torch_port_util import CPU, clone_tree, flatten, jit_o0, np_tree
 
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_TOL = 2e-4     # the slice's f32 tolerance, per leaf relative to 1 + max|g_ref|
@@ -87,7 +87,7 @@ def model():
     pt, spec, pj, jspec, batch = density_model(seed=2)
     jtrain_p, jfrozen = jtrain.split_params(pj)
 
-    @jax.jit
+    @jit_o0
     def reference(trainable, b):
         step = jtrain.make_train_step(jspec, jfrozen, _jax_capture())
         state, metrics = step(jtrain.init_state(trainable, _jax_capture()), b,

@@ -49,7 +49,7 @@ from ipoke_tpu_torch.train import first_stage as tfs
 from ipoke_tpu_torch.train.losses import kl_divergence
 from ipoke_tpu_torch.train.second_stage import float_leaves
 from ipoke_tpu_torch.utils import prng
-from torch_port_util import CPU, clone_tree, flatten, np_tree, t
+from torch_port_util import CPU, clone_tree, flatten, jit_o0, np_tree, t
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-4
@@ -119,7 +119,7 @@ def test_poke_vae_forward_matches_jax(stack, prior):
         got = variants.poke_vae_forward(pfs.materialize_spectral_norm(p),
                                         {k: t(v) for k, v in batch.items()}, spec,
                                         rng=prng.prng_key(4), sample_prior=prior)
-    want = jax.jit(lambda p_, b_: jvariants.poke_vae_forward(
+    want = jit_o0(lambda p_, b_: jvariants.poke_vae_forward(
         jmaterialize(p_), b_, jspec, rng=jax.random.PRNGKey(4), sample_prior=prior))(_jax(p), batch)
     assert got[0].shape == (B, T - 1, S, S, 3)
     if prior:
@@ -142,7 +142,7 @@ def test_poke_vae_gradients_match_jax():
                                                        rng=jax.random.PRNGKey(8))
         return jnp.mean(jnp.abs(b_["images"][:, 1:] - x_hat)) + 0.1 * jkl(mu, logvar)
 
-    want = flatten(tfs.trainable(bridge_generator(np_tree(jax.jit(jax.grad(jloss))(_jax(p), batch)),
+    want = flatten(tfs.trainable(bridge_generator(np_tree(jit_o0(jax.grad(jloss))(_jax(p), batch)),
                                                   CPU)))
     for leaf in float_leaves(tfs.trainable(p)):
         leaf.requires_grad_(True)
@@ -168,7 +168,7 @@ def test_rnn_motion_forward_matches_jax():
     with torch.no_grad():
         got = variants.rnn_motion_forward(pfs.materialize_spectral_norm(p), t(x), FS_SPEC,
                                           enc_spec, dec_spec, rng=prng.prng_key(12))
-    want = jax.jit(lambda p_, x_: jvariants.rnn_motion_forward(
+    want = jit_o0(lambda p_, x_: jvariants.rnn_motion_forward(
         jmaterialize(p_), x_, JFS_SPEC, jenc, jdec, rng=jax.random.PRNGKey(12)))(_jax(p), x)
     assert got[0].shape == (B, T - 1, S, S, 3)
     for g, w in zip(got, want):
@@ -184,7 +184,7 @@ def test_fc_baseline_forward_matches_jax():
         got = variants.fc_baseline_forward(pfs.materialize_spectral_norm(p), t(x), spec, me_spec,
                                            rng=prng.prng_key(16))
     jme = jmotion_encoder.MotionEncoderSpec(**dataclasses.asdict(me_spec))
-    want = jax.jit(lambda p_, x_: jvariants.fc_baseline_forward(
+    want = jit_o0(lambda p_, x_: jvariants.fc_baseline_forward(
         jmaterialize(p_), x_, jspec, jme, rng=jax.random.PRNGKey(16)))(_jax(p), x)
     assert got[0].shape == (B, T - 1, S, S, 3)
     for g, w in zip(got, want):
@@ -285,7 +285,7 @@ def test_poke_vae_trainer(tmp_path):
     images, poke = _batch(17)["images"], _batch(17)["poke"]
     spec, jspec = experiment.poke_vae_spec(config, fs_spec), jvariants.PokeVAESpec(
         jfs.FirstStageSpec(**dataclasses.asdict(fs_spec)), True)
-    want = jax.jit(lambda p_, b_: jvariants.poke_vae_forward(
+    want = jit_o0(lambda p_, b_: jvariants.poke_vae_forward(
         jmaterialize(p_), b_, jspec, rng=jax.random.PRNGKey(18)))(
         jax.tree_util.tree_map(jnp.asarray, tree["gen_params"]), {"images": images, "poke": poke})
     with torch.no_grad():

@@ -21,6 +21,23 @@ CPU = torch.device("cpu")
 torch.set_num_threads(1)
 
 
+def jit_o0(fn):
+    """``jax.jit(fn)`` compiled at XLA's backend optimisation level 0 (once
+    per argument shapes), which takes ~30% less compile time for the JAX
+    references; the numbers differ from the optimised build's by rounding
+    only."""
+    jitted = jax.jit(fn)
+    compiled = {}
+
+    def call(*args):
+        key = str(jax.tree_util.tree_map(lambda a: (jnp.shape(a), jnp.result_type(a)), args))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile({"xla_backend_optimization_level": 0})
+        return compiled[key](*args)
+
+    return call
+
+
 def np_tree(tree):
     """A JAX param tree as numpy arrays (the bridge's input)."""
     return jax.tree_util.tree_map(np.asarray, tree)
@@ -42,7 +59,7 @@ def _fields(spec, drop=()):
 
 
 def port_flow_spec(jspec, **overrides):
-    kw = _fields(jspec, drop=("remat", "mcf_backend", "mcf_unroll"))
+    kw = _fields(jspec, drop=("mcf_backend", "mcf_unroll"))
     kw.update(overrides)
     return PortFlowSpec(**kw)
 
