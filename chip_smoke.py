@@ -137,6 +137,13 @@ Phases, each fatal on failure:
              launch counts read in the ranks around each driven call (K2 200
              per rank per sampling call, K1 and K2 0 in the train steps);
              step ms and peak memory per rank (FSDP beside data parallel).
+             The gloo run adds the microbatched leg (dryrun.micro_leg) in
+             the same ranks after FSDP: the step data parallel with ZeRO-1
+             and make_train_step(n_microbatches=PARALLEL_MICROBATCHES), so
+             each rank runs two microbatches of 2 rows and accumulates their
+             gradients, two steps, each rank held against its one-process
+             microbatched run within dryrun.TRAIN_TOLS['cuda']; K1 and K2 0
+             in its steps.
  9. train   the training path: experiments/second_stage.train on iper_128
              at full width and all 15 levels on STEPS_PER_LEVEL
              MaCowSteps each from JAX's init at seed 0, synthetic
@@ -220,6 +227,17 @@ Phases, each fatal on failure:
              save, the image AE's test through python -m
              ipoke_tpu_torch.main; then 2 stage-2 steps through main on the
              tree at cut depth.  No kernel launches on any of these paths.
+ 11a. native the native host data engine (IPOKE_NATIVE=1) on the data
+             phase's tree: the compiler probed (g++ --version, an OpenMP
+             program, whether zlib.h and png.h are found: the engine needs
+             neither), csrc/dataio.cpp built by g++ (seconds printed); the
+             first clip's 10 frames decoded bitwise data/image's bytes and,
+             resized to 128^2 one by one and through load_frames, within
+             NATIVE_TOL of the numpy twin; their flows bitwise np.load;
+             simulate_pokes on 8 seeded flows twice, bitwise; the loader
+             (NATIVE_BATCHES batches of B=8, 10 frames of 128^2) with
+             IPOKE_NATIVE=1 (bilinear frames) and without (LANCZOS), in
+             batches/s.  No kernel launches.
  11b. prep  data preparation through python -m ipoke_tpu_torch.data.prepare
              in a child process: 4 MJPG clips of textured layers in known
              motion (pwc.synthetic_pair_layered's kind, 40 frames at 256^2,
@@ -241,7 +259,7 @@ Phases, each fatal on failure:
              Horn-Schunck's EPE on the extracted frames, which must beat no
              flow); then one batch of the tree through StaticDataModule and
              2 stage-2 steps through main at cut depth.  No kernel launches.
- 12. report  a JSON line of the variants phase, one of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the eval phase, one of
+ 12. report  a JSON line of the variants phase, one of the parallel phase, one of the ingest phase, one of the prep phase, one of the data phase, one of the native phase, one of the eval phase, one of
              the eval2 phase, one of
              the stage-1 phase, one of the stage-1 variants phase and its
              seconds, one of the tools phase, one of the resume phase, one of the train phase, one of the distill
@@ -288,6 +306,7 @@ from ipoke_tpu_torch.ckpt.jax_bridge import (  # noqa: E402
     bridge_components, bridge_gan_params, bridge_second_stage, unbridge_flow,
     unbridge_second_stage, unbridge_wrapper)
 from ipoke_tpu_torch import main as port_main  # noqa: E402
+from ipoke_tpu_torch.data import image, native  # noqa: E402
 from ipoke_tpu_torch.data.datamodule import StaticDataModule  # noqa: E402
 from ipoke_tpu_torch.data.loader import device_prefetch, to_device  # noqa: E402
 from ipoke_tpu_torch.data.tree import write_tree  # noqa: E402
@@ -378,6 +397,9 @@ STEPS_PER_LEVEL = 1
 K2_ONE_SLICE = ((96, 8), (128, 4))
 # the parallel phase: ranks on the card, and how long the spawned dry run may take
 PARALLEL_NPROC, PARALLEL_TIMEOUT_S = 2, 600
+# the microbatched leg's make_train_step(n_microbatches=): at B=8 on 2 data
+# ranks, two microbatches of 2 rows on each rank, their gradients accumulated
+PARALLEL_MICROBATCHES = 4
 # resumption at full width: the child's epoch (long enough that it never ends
 # in the run), the logged step that triggers SIGTERM, the resumed steps, and
 # how long the child may take
@@ -1071,13 +1093,14 @@ def phase_artifact(device, card, spec, params, student, tmp, flow_buckets=ARTIFA
     return out
 
 
-def _parallel_run(card, backend, spec):
+def _parallel_run(card, backend, spec, n_microbatches=1):
     """One spawned dry run at full width under ``backend`` (its ranks hold
-    every leg against its one-process run, or the run raises); the launch
-    counts checked, and the ranks' figures printed."""
+    every leg against its one-process run, or the run raises), with the
+    microbatched leg when ``n_microbatches`` > 1; the launch counts checked,
+    and the ranks' figures printed."""
     t0 = time.perf_counter()
     reports = dryrun.run(PARALLEL_NPROC, "cuda", backend, full=True, timeout=PARALLEL_TIMEOUT_S,
-                         steps_per_level=STEPS_PER_LEVEL)
+                         steps_per_level=STEPS_PER_LEVEL, n_microbatches=n_microbatches)
     wall = time.perf_counter() - t0
     units = 4 * sum(spec.flow.num_steps)
     legs = {"ok": [r["ok"] for r in reports], "fsdp": [r["fsdp"] for r in reports]}
@@ -1098,24 +1121,43 @@ def _parallel_run(card, backend, spec):
             + "; ".join(f"{k} {sa[k]['ms']:.1f} ms, |video - one process| "
                         f"{sa[k]['max_abs_err']:.3g}, launches {sa[k]['launches']}"
                         for k in ("z_fixed", "z_drawn")))
-    bad = [leg for r in reports for leg in r["ok"] + [r["fsdp"]]
+    micro = [r["micro"] for r in reports if "micro" in r]
+    tols = dryrun.TRAIN_TOLS["cuda"]
+    for r in (r for r in reports if "micro" in r):
+        leg = r["micro"]
+        log(f"parallel [{card}]: rank {r['rank']} microbatched train mesh {leg['mesh']}, "
+            f"n_microbatches {leg['n_microbatches']}: step ms "
+            f"{', '.join(f'{x:.1f}' for x in leg['step_ms'])}; peak {leg['peak_gib']:.2f} GiB; "
+            f"one-process reference {leg['ref_s']:.1f} s, leg {leg['leg_s']:.1f} s; against one "
+            "process " + ", ".join(f"{k} {v:.3g} (tolerance {tols[k]})"
+                                   for k, v in leg["errs"].items())
+            + f"; K1/K2 launches in the steps {leg['launches']}")
+    if len(micro) != (PARALLEL_NPROC if n_microbatches > 1 else 0) or not all(
+            dryrun.held(leg, tols) and leg["n_microbatches"] == n_microbatches
+            for leg in micro):
+        raise SystemExit(f"parallel: the microbatched leg left the one-process step: {micro}")
+    bad = [leg for r in reports for leg in r["ok"] + [r["fsdp"]] + [r[k] for k in ("micro",) if k in r]
            if leg["launches"] != {"mcf_inverse": 0, "macow_unit_inverse": 0}]
     bad += [r["sample"] for r in reports for k in ("z_fixed", "z_drawn")
             if r["sample"][k]["launches"] != {"mcf_inverse": 0, "macow_unit_inverse": units}]
     if bad or any(r["backend"] != backend for r in reports):
         raise SystemExit(f"parallel: a leg launched otherwise than it should: {bad}")
+    if micro:
+        log(f"parallel [{card}]: microbatched leg ({PARALLEL_NPROC} ranks, {backend}, ZeRO-1, "
+            f"n_microbatches={n_microbatches}) held, one-process reference and leg "
+            f"{max(x['ref_s'] + x['leg_s'] for x in micro):.1f} s")
     log(f"parallel [{card}]: {PARALLEL_NPROC} ranks under {backend}: every leg held, "
         f"{wall:.1f} s")
-    return {"backend": backend, "wall_s": wall, "reports": reports, "legs": legs}
+    return {"backend": backend, "wall_s": wall, "reports": reports, "legs": legs, "micro": micro}
 
 
 def phase_parallel(card, spec):
     """The parallel slice at full width (``parallel/dryrun``): PARALLEL_NPROC
     ranks on this card over gloo and, with as many cards, one rank per card
-    over NCCL.  The launch counts are the ranks' own, zeroed and read around
-    each driven call."""
+    over NCCL; the gloo run adds the microbatched leg.  The launch counts
+    are the ranks' own, zeroed and read around each driven call."""
     t_phase = time.perf_counter()
-    out = {"gloo": _parallel_run(card, "gloo", spec)}
+    out = {"gloo": _parallel_run(card, "gloo", spec, PARALLEL_MICROBATCHES)}
     if torch.cuda.device_count() >= PARALLEL_NPROC:
         out["nccl"] = _parallel_run(card, "nccl", spec)
     else:
@@ -3090,7 +3132,109 @@ def phase_data(device, card, entry, train_step_ms, tmp):
     out["stage2"] = {"s": s2_s, "flow_loss": [h["flow_loss"] for h in hist],
                      "step_ms": [h["step_s"] * 1e3 for h in hist]}
     out["phase_s"] = time.perf_counter() - t_phase
+    out["meta"] = meta
     log(f"data [{card}]: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the native host data engine (IPOKE_NATIVE=1)
+# ---------------------------------------------------------------------------
+
+NATIVE_BATCHES = 2         # timed loader batches per setting
+NATIVE_TOL = 1e-6          # the engine's resize against its numpy twin
+NATIVE_FRAMES = 10         # the tree's frames held against the twin
+
+
+def _probe_compiler():
+    """The host compiler the engine builds with: its version, whether an
+    OpenMP program builds and runs, and whether zlib.h and png.h are found
+    (the engine needs neither)."""
+    out = {"cxx": native.CXX}
+    ver = subprocess.run([native.CXX, "--version"], capture_output=True, text=True, timeout=60)
+    out["version"] = ver.stdout.splitlines()[0] if ver.returncode == 0 else f"exit {ver.returncode}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cxx_") as tmp:
+        exe = os.path.join(tmp, "omp")
+        src = "#include <omp.h>\nint main() { return omp_get_max_threads() > 0 ? 0 : 1; }\n"
+        r = subprocess.run([native.CXX, "-fopenmp", "-x", "c++", "-", "-o", exe], input=src,
+                           capture_output=True, text=True, timeout=120)
+        ok = r.returncode == 0 and subprocess.run([exe], timeout=60).returncode == 0
+        out["openmp"] = "builds and runs" if ok else f"fails: {r.stderr.strip()[-300:]}"
+        for header in ("zlib.h", "png.h"):
+            r = subprocess.run([native.CXX, "-fsyntax-only", "-x", "c++", "-"],
+                               input=f"#include <{header}>\n", capture_output=True, text=True,
+                               timeout=60)
+            out[header] = "found" if r.returncode == 0 else "missing"
+    return out
+
+
+def phase_native(device, card, entry, meta):
+    """The native engine on the data phase's tree: built from csrc/dataio.cpp
+    by g++ (build seconds); the tree's first clip decoded bitwise
+    data/image's bytes and, resized to entry's size, within NATIVE_TOL of
+    the numpy twin, one frame at a time and through load_frames; its flows
+    bitwise np.load; simulate_pokes on a seeded flow batch twice, bitwise;
+    then the loader (NATIVE_BATCHES batches of B=8) with IPOKE_NATIVE=1 and
+    without, in batches/s.  K1 and K2 launch nowhere here."""
+    t_phase = time.perf_counter()
+    _zero_counts()
+    out = {"probe": _probe_compiler()}
+    log(f"native [{card}]: {out['probe']}")
+    info = native.build()
+    out["build_s"] = info.seconds
+    log(f"native [{card}]: engine {info.path.name} built by {native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)} in {info.seconds:.2f} s"
+        + (" (reused)" if info.seconds == 0.0 else ""))
+    with open(meta, "rb") as f:
+        tree = pickle.load(f)
+    root = os.path.dirname(meta)
+    frames = [os.path.join(root, str(p)) for p in tree["img_path"][:NATIVE_FRAMES]]
+    flows = [f for f in (os.path.join(root, str(p)) for row in tree["flow_paths"][:NATIVE_FRAMES]
+                         for p in row) if os.path.isfile(f)]   # a video's last frames have none
+    s = entry.spatial_size
+    t0 = time.perf_counter()
+    bytes_ok = all(np.array_equal(native.decode_png(p), image.read_png(p)) for p in frames)
+    twins = np.stack([native.load_png_plain(p, s) for p in frames])
+    one = np.stack([native.load_png(p, s) for p in frames])
+    batch = native.load_frames([frames], s)[0]
+    err = max(float(np.abs(one - twins).max()), float(np.abs(batch - twins).max()))
+    flows_ok = all(np.array_equal(native.load_npy_flow(p), native.load_npy_flow_plain(p))
+                   for p in flows)
+    rng = np.random.default_rng(0)
+    fb = np.zeros((BATCH, s, s, 2), np.float32)
+    fb[:, s // 4:s // 2, s // 3:2 * s // 3] = rng.normal(0, 3, (BATCH, 1, 1, 2))
+    fb += rng.normal(0, 0.2, fb.shape).astype(np.float32)
+    pokes = [native.simulate_pokes(fb, seed=7) for _ in range(2)]
+    pokes_ok = all(np.array_equal(a, b) for a, b in zip(*pokes)) and bool(
+        (pokes[0][1][:, 0, 0] >= 0).all())
+    out["checks"] = {"frames": len(frames), "bytes_bitwise": bytes_ok, "resize_max_abs_err": err,
+                     "flows": len(flows), "flows_bitwise": flows_ok,
+                     "pokes_deterministic": pokes_ok, "s": time.perf_counter() - t0}
+    log(f"native [{card}]: {len(frames)} frames of {DATA_STORED}^2: decoded bytes bitwise "
+        f"data/image's {bytes_ok}; at {s}^2 one by one and through load_frames within "
+        f"{err:.3g} of the numpy twin (tolerance {NATIVE_TOL}); {len(flows)} flows bitwise "
+        f"np.load {flows_ok}; simulate_pokes on {BATCH} seeded flows twice bitwise {pokes_ok}")
+    if not (bytes_ok and err <= NATIVE_TOL and flows and flows_ok and pokes_ok):
+        raise SystemExit(f"native: the engine disagrees with its numpy twin: {out['checks']}")
+    loader = {}
+    for name, env in (("native", "1"), ("numpy", None)):
+        old = os.environ.pop("IPOKE_NATIVE", None)
+        if env is not None:
+            os.environ["IPOKE_NATIVE"] = env
+        try:
+            loader[name] = _loader_run(card, device, data_config(meta, entry), NATIVE_BATCHES)
+        finally:
+            os.environ.pop("IPOKE_NATIVE", None)
+            if old is not None:
+                os.environ["IPOKE_NATIVE"] = old
+    out["loader"] = loader
+    out["launches"] = dict(zip(("mcf_inverse", "macow_unit_inverse"), _counts()))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"native [{card}]: loader {loader['native']['batches_per_s']:.3f} batches/s of {BATCH} at "
+        f"{s}^2 with IPOKE_NATIVE=1 (bilinear), {loader['numpy']['batches_per_s']:.3f} without "
+        f"(LANCZOS); K1/K2 launches {out['launches']}; the phase took {out['phase_s']:.1f} s")
+    if any(out["launches"].values()):
+        raise SystemExit(f"native: a kernel launched: {out['launches']}")
     return out
 
 
@@ -3500,6 +3644,7 @@ def main():
         tools = phase_tools(device, card, entry, tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         data = phase_data(device, card, entry, train["step_ms_median"], tmp)
+        nat = phase_native(device, card, entry, data["meta"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as tmp:
         prep = phase_prep(device, card, entry, tmp)
 
@@ -3544,6 +3689,9 @@ def main():
              parallel_train_step_launches=[leg["launches"][name]
                                            for r in parallel["gloo"]["reports"]
                                            for leg in r["ok"] + [r["fsdp"]]],
+             parallel_micro_train_step_launches=[leg["launches"][name]
+                                                 for leg in parallel["gloo"]["micro"]],
+             native_phase_launches=nat["launches"][name],
              variant_launches={leg: {backend: n[name] for backend, n in v["launches"].items()}
                                for leg, v in variants.items() if leg != "phase_s"},
              variant_roundtrip_launches={leg: v["roundtrip_launches"][name]
@@ -3567,6 +3715,7 @@ def main():
     print(json.dumps({"ingest": ingest}, default=float), flush=True)
     print(json.dumps({"prep": prep}, default=float), flush=True)
     print(json.dumps({"data": data}, default=float), flush=True)
+    print(json.dumps({"native": nat}, default=float), flush=True)
     print(json.dumps({"eval": ev}, default=float), flush=True)
     print(json.dumps({"eval2": ev2}, default=float), flush=True)
     print(json.dumps({"stage1": stage1}, default=float), flush=True)

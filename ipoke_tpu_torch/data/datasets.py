@@ -19,8 +19,11 @@ Batch contract (as the synthetic dataset's):
 Frames are decoded and resized by ``data/image`` (PIL's PNG pixels and
 LANCZOS resample without PIL).  Every draw comes from the dataset's one
 ``np.random.Generator`` in the JAX package's order; the loader's threads
-share it, as they do there.  ``IPOKE_NATIVE=1`` (the JAX package's C++
-loader) raises: its port waits for libpng's headers on the card's machine.
+share it, as they do there.  ``IPOKE_NATIVE=1`` loads flows, and a clip's
+frames where every path is a ``.png``, through the native engine
+(``data/native``: C++/OpenMP, a bilinear resize where the default path
+resamples with LANCZOS), as the JAX package's datasets do; an engine that
+does not build raises, it never falls back to numpy.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from ipoke_tpu_torch.data import native
 from ipoke_tpu_torch.data.augment import AugmentConfig, color_jitter, geometric
 from ipoke_tpu_torch.data.image import load_image as _load_image
 from ipoke_tpu_torch.data.image import load_images
@@ -44,13 +48,14 @@ from ipoke_tpu_torch.data.poke import (
 )
 
 
-def _check_native():
-    """``IPOKE_NATIVE=1`` selects the JAX package's C++ loader, which the
-    port does not have yet: raise rather than load through numpy."""
-    if os.environ.get("IPOKE_NATIVE") == "1":
-        raise NotImplementedError(
-            "IPOKE_NATIVE=1: the native loader (native/dataio.cpp) is not ported; its libpng "
-            "headers are missing on the card's machine (ROADMAP queue 1 item 4)")
+def _native() -> bool:
+    """Whether ``IPOKE_NATIVE=1`` selects the native engine; its library is
+    built here, so a failed build raises ``native.NativeBuildError`` before
+    any load that a ``FlowError`` retry could swallow."""
+    if os.environ.get("IPOKE_NATIVE") != "1":
+        return False
+    native.lib()
+    return True
 
 
 def _bilinear_resize_np(x, size):
@@ -202,9 +207,9 @@ class FlowVideoDataset:
     def _load_flow(self, idx):
         path = self._abs(self.meta["flow_paths"][idx][self.valid_lag]
                          if self.meta["flow_paths"].ndim > 1 else self.meta["flow_paths"][idx])
-        _check_native()
+        load = native.load_npy_flow if _native() else np.load
         try:
-            flow = np.load(path)
+            flow = load(path)
         except Exception as e:
             raise FlowError(str(e))
         if flow.shape[0] == 2:  # CHW -> HWC
@@ -223,7 +228,8 @@ class FlowVideoDataset:
         step = self.subsample_step
         idxs = [start + i * step for i in range(self.cfg.max_frames)]
         paths = [self._abs(self.meta["img_path"][i]) for i in idxs]
-        _check_native()
+        if _native() and all(p.endswith(".png") for p in paths):
+            return native.load_frames([paths], self.cfg.spatial_size)[0]
         return load_images(paths, self.cfg.spatial_size)
 
     def __getitem__(self, idx, _retries=50):

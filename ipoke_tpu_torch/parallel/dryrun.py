@@ -15,6 +15,10 @@ in its order, one line per leg:
 4. ``sample ok``: ``forward_sample`` on the ``data x model`` mesh, each rank
    its rows, with z fixed and with z drawn.
 
+``run(..., n_microbatches=n)`` with n > 1 adds ``micro ok`` after 3: the
+step of 1 made with n microbatches, against its own one-process run (a
+caller's option, not a flag: JAX's dry run has no such leg).
+
 Each train leg takes two steps from the same params on a global batch of
 ``2 x data`` (``--full``: 8) rows, then each rank's pieces are held against
 the one-process steps on the global batch, which each rank runs first (all
@@ -171,11 +175,12 @@ def global_batch(me, rows):
             "poke": prng.normal(prng.prng_key(6), (rows, s, s, 2), me.device)}
 
 
-def _setup(me, params, **opt_kw):
+def _setup(me, params, n_microbatches=1, **opt_kw):
     trainable, frozen = train_ss.split_params(params)
     opt = train_ss.make_optimizer(**dict(dict(lr=LR, warmup_steps=0, total_steps=100), **opt_kw))
     state = train_ss.init_state(trainable, opt)
-    return state, train_ss.make_train_step(me.train_spec, frozen, opt)
+    return state, train_ss.make_train_step(me.train_spec, frozen, opt,
+                                           n_microbatches=n_microbatches)
 
 
 def _keys():
@@ -191,12 +196,12 @@ def _start_params(me):
     return train_ss.float_leaves(train_ss.split_params(params_for(me, 0))[0])
 
 
-def reference(me, **opt_kw):
+def reference(me, n_microbatches=1, **opt_kw):
     """The one-process run of STEPS steps on the global batch: (the float
     params' change over the steps, their first moments, both on the host;
     metrics of the last step).  ``opt_kw``: more arguments of
-    ``make_optimizer``."""
-    state, step = _setup(me, params_for(me, 0), **opt_kw)
+    ``make_optimizer``; ``n_microbatches``: ``make_train_step``'s."""
+    state, step = _setup(me, params_for(me, 0), n_microbatches, **opt_kw)
     start = [t.detach().to("cpu", copy=True) for t in train_ss.float_leaves(state.params)]
     batch = global_batch(me, me.batch_rows)
     for key in _keys():
@@ -221,12 +226,13 @@ def _norm_err(got, want):
 
 
 def train_leg(me, ref, n_data, n_model, fsdp=False, zero_opt=True, tp=True, donate=True,
-              **opt_kw):
+              n_microbatches=1, **opt_kw):
     """STEPS sharded steps, held against this rank's ``reference`` (made with
-    the same ``opt_kw``); returns this rank's report of the leg."""
+    the same ``n_microbatches`` and ``opt_kw``); returns this rank's report
+    of the leg."""
     mesh = pmesh.make_mesh(n_data, n_model, me.device.type)
     me.peak_reset()
-    state, step_fn = _setup(me, params_for(me, 0), **opt_kw)
+    state, step_fn = _setup(me, params_for(me, 0), n_microbatches, **opt_kw)
     tp = psh.flow_param_shardings(mesh, state.params, min_width=me.min_width) if tp else None
     placed, step = train_ss.shard_train_setup(mesh, state, step_fn, param_shardings=tp,
                                               zero_opt=zero_opt,
@@ -264,11 +270,26 @@ def train_leg(me, ref, n_data, n_model, fsdp=False, zero_opt=True, tp=True, dona
                                    for p in step.plans),
         "zero_sharded_moments": sum(p.zero is not None for p in step.plans),
     }
-    out = dict(counts, mesh={"data": n_data, "model": n_model}, fsdp=fsdp, step_ms=ms,
+    out = dict(counts, mesh={"data": n_data, "model": n_model}, fsdp=fsdp,
+               n_microbatches=n_microbatches, step_ms=ms,
                peak_gib=peak, errs=errs, launches=launches,
                flow_loss=float(metrics["flow_loss"]))
     del placed, step, step_fn, batch
     return out
+
+
+def micro_leg(me, n_microbatches):
+    """The ``ok`` leg on the ``data x model`` mesh with a step of
+    ``n_microbatches``, held against this rank's one-process run of that
+    step, made here; the report gains the seconds of both (``ref_s``,
+    ``leg_s``)."""
+    t0 = time.perf_counter()
+    ref = reference(me, n_microbatches=n_microbatches)
+    ref_s = time.perf_counter() - t0
+    me.peak_reset()
+    t0 = time.perf_counter()
+    leg = train_leg(me, ref, me.n_data, me.n_model, n_microbatches=n_microbatches)
+    return dict(leg, ref_s=ref_s, leg_s=time.perf_counter() - t0)
 
 
 def held(report, tols):
@@ -366,8 +387,9 @@ def _bcast_ok(x):
 
 
 def run_rank(rank, world, init_method, device_type, backend, full, queue=None,
-             steps_per_level=None):
-    """One rank of the dry run; puts its report (or its error) on ``queue``."""
+             steps_per_level=None, n_microbatches=1):
+    """One rank of the dry run; puts its report (or its error) on ``queue``.
+    ``n_microbatches`` > 1 adds the ``micro`` leg after ``fsdp``."""
     report = {"rank": rank}
     try:
         if device_type == "cuda":
@@ -425,6 +447,12 @@ def run_rank(rank, world, init_method, device_type, backend, full, queue=None,
                f"readings against one process {_per_rank(me, _readings(f))}, step ms "
                f"{_per_rank(me, f['step_ms'], '%.1f')}, peak GiB per rank (dp, fsdp) {peaks}")
         del ref
+        if n_microbatches > 1:
+            report["micro"] = x = micro_leg(me, n_microbatches)
+            _check_train(me, "micro", me.gathered(x))
+            me.say(f"micro ok, mesh=(data={me.n_data},model={me.n_model}), n_microbatches="
+                   f"{n_microbatches}, readings against one process "
+                   f"{_per_rank(me, _readings(x))}, step ms {_per_rank(me, x['step_ms'], '%.1f')}")
 
         report["sample"] = sample_leg(me)
         allr = me.gathered(report["sample"])
@@ -461,9 +489,11 @@ def _per_rank(me, value, fmt="%.2e"):
     return f(me.gathered(value))
 
 
-def run(nproc, device="cpu", backend=None, full=False, timeout=900.0, steps_per_level=None):
+def run(nproc, device="cpu", backend=None, full=False, timeout=900.0, steps_per_level=None,
+        n_microbatches=1):
     """Spawn ``nproc`` ranks of the dry run and wait at most ``timeout``
-    seconds; returns the ranks' reports in rank order, or raises."""
+    seconds; returns the ranks' reports in rank order, or raises.
+    ``n_microbatches`` > 1 adds the ``micro`` leg (``micro_leg``)."""
     import torch.multiprocessing as mp
 
     backend = backend or distributed.default_backend(device, nproc)
@@ -476,7 +506,7 @@ def run(nproc, device="cpu", backend=None, full=False, timeout=900.0, steps_per_
     with tempfile.TemporaryDirectory(prefix="ipoke_dryrun_") as tmp:
         init = f"file://{tmp}/rendezvous"
         procs = [ctx.Process(target=run_rank, args=(r, nproc, init, device, backend, full, queue,
-                                                     steps_per_level))
+                                                     steps_per_level, n_microbatches))
                  for r in range(nproc)]
         for p in procs:
             p.start()

@@ -561,6 +561,25 @@ def _sum_in_buckets(tensors, group, bucket_bytes=1 << 26):
         flush()
 
 
+def microbatch_rows(b_global: int, n_micro: int) -> int:
+    """Rows per microbatch of a global batch of ``b_global`` rows."""
+    if b_global % n_micro:
+        raise ValueError(f"a global batch of {b_global} rows does not split into "
+                         f"{n_micro} microbatches")
+    return b_global // n_micro
+
+
+def microbatch_parts(first: int, rows: int, n_micro: int, m: int):
+    """(i, a, b) for each microbatch i of ``m`` rows that holds some of the
+    global rows ``[first, first + rows)``: its part is rows ``[a, b)``."""
+    out = []
+    for i in range(n_micro):
+        a, b = max(first, i * m), min(first + rows, (i + 1) * m)
+        if a < b:
+            out.append((i, a, b))
+    return out
+
+
 def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
                       zero_opt: bool = True, donate: bool = True, zero_min_size: int = 8192,
                       fsdp: bool = False):
@@ -578,6 +597,13 @@ def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
 
     * data parallel: each rank's gradients of its rows, averaged over
       ``data`` by an all-reduce;
+    * a step made with ``n_microbatches`` = n: microbatch i is the global
+      rows ``[i m, (i + 1) m)``, m = B / n, with key i of ``split(rng, n)``
+      and draws of its shape; each rank runs its part of each microbatch
+      (none: it skips that forward), and one all-reduce after the last
+      averages the gradients over the microbatches; the losses are the last
+      microbatch's, over the ranks that hold its rows, and the reference NLL
+      is its draw's;
     * ``param_shardings`` (tensor parallel, ``parallel/sharding.
       flow_param_shardings``): a leaf placed on ``model`` is held, computed
       and updated as this rank's shard (the NICE blocks of the flow's priors
@@ -608,9 +634,7 @@ def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
 
     if not hasattr(step_fn, "grads_of"):
         raise TypeError("shard_train_setup takes a step made by make_train_step")
-    if step_fn.n_microbatches > 1:
-        raise NotImplementedError("microbatches in a step over a mesh")
-    spec = step_fn.spec
+    spec, n_micro = step_fn.spec, step_fn.n_microbatches
     transposed = tuple(grown_adapters(spec))
     n_data, n_model = axis_size(mesh, "data"), axis_size(mesh, "model")
     groups = {axis: group(mesh, axis) for axis in ("data", "model")}
@@ -673,27 +697,47 @@ def shard_train_setup(mesh, state: TrainState, step_fn, param_shardings=None,
 
     optimizer = step_fn.optimizer.with_norm(norm)
 
+    def grads_of(tree, part, key, rows):
+        if any(on_model):
+            with convnets.model_parallel(groups["model"]):
+                return step_fn.grads_of(tree, part, key, rows)
+        return step_fn.grads_of(tree, part, key, rows)
+
     def step(st: TrainState, local_batch, rng):
         mine = float_leaves(st.params)
         compute = [gather(t, p.store).requires_grad_(True) if fs else t
                    for t, p, fs in zip(mine, plans, on_data)]
         tree = _with_float_leaves(st.params, compute)
         b_local = next(iter(local_batch.values())).shape[0]
-        mine_rows = (axis_index(mesh, "data") * b_local, b_local * n_data)
-        if any(on_model):
-            with convnets.model_parallel(groups["model"]):
-                _, logs, grads = step_fn.grads_of(tree, local_batch, rng, mine_rows)
-        else:
-            _, logs, grads = step_fn.grads_of(tree, local_batch, rng, mine_rows)
+        first = axis_index(mesh, "data") * b_local
+        m = microbatch_rows(b_local * n_data, n_micro)
+        keys = prng.split(rng, n_micro) if n_micro > 1 else [rng]
+        # microbatch i is global rows [i m, (i + 1) m): this rank runs the part
+        # of it that it holds, weighted by its share of this rank's rows, so
+        # the mean over data of the sums is the mean over microbatches
+        grads = logs = last = None
+        for i, a, b in microbatch_parts(first, b_local, n_micro, m):
+            part = {k: v[a - first:b - first] for k, v in local_batch.items()}
+            _, logs, g = grads_of(tree, part, keys[i], (a - i * m, m))
+            w = (b - a) / b_local
+            if grads is None:
+                grads = g if w == 1 else torch._foreach_mul(g, w)
+            else:
+                torch._foreach_add_(grads, g, alpha=w)
+            last = (b - a) * n_data / m if i == n_micro - 1 else None
+        names = ("flow_loss", "nlogdet_loss", "nll_loss")
         if n_data > 1:
             _sum_in_buckets(grads, groups["data"])
             torch._foreach_div_(grads, n_data)
-            names = ("flow_loss", "nlogdet_loss", "nll_loss")
-            losses = pdist.sum_(torch.stack([logs[k] for k in names]), groups["data"]) / n_data
+            # the last microbatch's losses over the ranks that hold its rows
+            losses = torch.stack([logs[k] for k in names])
+            losses = torch.zeros_like(losses) if last is None else (
+                losses if last == 1 else losses * last)
+            losses = pdist.sum_(losses, groups["data"]) / n_data
             logs = dict(logs, **dict(zip(names, losses.unbind())))
-        shape = transformer.reverse_input_shape(spec.flow, mine_rows[1], spec.latent_size,
+        shape = transformer.reverse_input_shape(spec.flow, m, spec.latent_size,
                                                 spec.flow_in_channels)
-        ref = prng.normal(rng, shape, logs["flow_loss"].device)
+        ref = prng.normal(keys[-1], shape, logs["flow_loss"].device)
         logs["reference_nll_loss"] = nll(ref, step_fn.spatial_mean).mean()
         g_mine = [chunk(g, p.zero) for g, p in zip(grads, plans)]
         metrics = dict(logs, grad_norm=norm(g_mine))

@@ -33,7 +33,7 @@ from ipoke_tpu.data import augment as jaug
 from ipoke_tpu.data import datamodule as jdm
 from ipoke_tpu.data import poke as jpoke
 from ipoke_tpu.data import samplers as jsam
-from ipoke_tpu_torch.data import augment, datamodule, image, loader, poke, samplers
+from ipoke_tpu_torch.data import augment, datamodule, image, loader, native, poke, samplers
 from ipoke_tpu_torch.data.datasets import get_dataset
 from ipoke_tpu_torch.data.tree import write_tree
 from ipoke_tpu_torch.utils.video import save_image
@@ -259,11 +259,23 @@ def test_grabcut_falls_back_to_the_flow_mask_without_cv2(tree, monkeypatch):
                           poke.flow_foreground_mask(flow, ds.cfg.poke))
 
 
-def test_native_loader_raises(tree, monkeypatch):
+@pytest.mark.parametrize("cxx,flags,says", [
+    ("g++-that-does-not-exist", None, "No such file or directory"),
+    ("g++", native.CXX_FLAGS + ("-fno-such-option",), "-fno-such-option"),
+], ids=["no-compiler", "compiler-error"])
+def test_native_loader_raises_the_compilers_message(tree, monkeypatch, tmp_path, cxx, flags,
+                                                    says):
+    """``IPOKE_NATIVE=1`` with an engine that does not build: the example
+    raises the build's error with the compiler's message, never a
+    ``FlowError`` retry or a quiet numpy load."""
     monkeypatch.setenv("IPOKE_NATIVE", "1")
+    monkeypatch.setattr(native, "CXX", cxx)
+    monkeypatch.setattr(native, "CXX_FLAGS", flags or native.CXX_FLAGS)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     ds = get_dataset("PlantDataset")(tree, datamodule.dataset_config_from(_data_cfg(tree, "x")))
-    with pytest.raises(NotImplementedError, match="native loader"):
+    with pytest.raises(native.NativeBuildError, match=says):
         ds[0]
+    assert not list(tmp_path.iterdir())
 
 
 def _synthetic_cfg(**kw):

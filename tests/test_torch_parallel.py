@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 from torch_parallel_faults import FAULTS, fault_case, verdict
-from torch_parallel_worker import World, gathered_train_case, mesh_case, sample_case, train_case
+from torch_parallel_worker import (World, gathered_train_case, mesh_case, micro_leg_case,
+                                   sample_case, train_case)
 
 from ipoke_tpu.parallel import distributed as jdist
 from ipoke_tpu.parallel import mesh as jmesh
@@ -45,15 +46,24 @@ LEGS = {
     4: [("dp-tp-zero", 2, 2, {}), ("fsdp-tp", 2, 2, {"fsdp": True}), ("zero", 4, 1, {})],
 }
 CLIP = {"clip_grad_norm": 1e-3}   # below the tiny model's gradient norm: it clips
+# the legs run again with a step of 2 microbatches, against the one-process
+# microbatched step: in the world of 4 (global batch 4) each microbatch's rows
+# lie on two ranks, and the flow's input has 16 augment channels, drawn per
+# microbatch
+MICRO = {2: [("dp-zero", 2, 1, {}), ("fsdp", 2, 1, {"fsdp": True}), ("tp", 1, 2, {})],
+         4: [("zero-augment", 4, 1, {})]}
 
 
 def _world(n):
     cases = [("mesh", mesh_case, {}),
              ("train", train_case, {"meshes": [(d, m, kw) for _, d, m, kw in LEGS[n]]}),
+             ("micro", train_case, {"meshes": [(d, m, kw) for _, d, m, kw in MICRO[n]],
+                                    "n_microbatches": 2, "augment": 16 if n == 4 else 0}),
              ("sample", sample_case, {})]
     if n == 2:
         cases += [("clip", train_case, dict(meshes=[(2, 1, {})], **CLIP)),
-                  ("faults", fault_case, {})]
+                  ("faults", fault_case, {}),
+                  ("micro-leg", micro_leg_case, {"n_microbatches": 4})]
     return World(n, cases)
 
 
@@ -246,13 +256,22 @@ def test_tp_rule_marks_only_the_priors_nice_convs(trees):
     assert {marks[k] for k in split} == {("model", 3), ("model", 2)}
 
 
-def test_shard_train_setup_refuses_microbatches():
-    spec = dryrun.tiny_spec()
-    step = train_ss.make_train_step(spec, {}, train_ss.make_optimizer(lr=1e-3), n_microbatches=2)
-    with pytest.raises(NotImplementedError, match="microbatches"):
-        train_ss.shard_train_setup(None, train_ss.TrainState(0, {}, []), step)
+def test_shard_train_setup_takes_only_a_step_of_make_train_step():
     with pytest.raises(TypeError, match="make_train_step"):
         train_ss.shard_train_setup(None, train_ss.TrainState(0, {}, []), lambda *a: a)
+
+
+def test_microbatch_parts_cover_each_rank_rows_once():
+    """A rank's rows split at the microbatches' bounds, a part straddling two
+    ranks included; a batch that does not split raises."""
+    assert train_ss.microbatch_parts(0, 4, 1, 8) == [(0, 0, 4)]
+    assert train_ss.microbatch_parts(4, 4, 2, 4) == [(1, 4, 8)]
+    # 6 rows over 2 ranks in 3 microbatches of 2: microbatch 1 lies on both
+    assert train_ss.microbatch_parts(0, 3, 3, 2) == [(0, 0, 2), (1, 2, 3)]
+    assert train_ss.microbatch_parts(3, 3, 3, 2) == [(1, 3, 4), (2, 4, 6)]
+    assert train_ss.microbatch_rows(6, 3) == 2
+    with pytest.raises(ValueError, match="microbatches"):
+        train_ss.microbatch_rows(6, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +292,32 @@ def test_sharded_step_matches_one_process(worlds, n, i):
             assert rep["tp_sharded_params"] == 6      # 2 levels x the prior's conv1/2/3
         if kw.get("zero_opt", True):
             assert rep["zero_sharded_moments"] > 0
+
+
+@pytest.mark.parametrize("n,i", [(n, i) for n in MICRO for i in range(len(MICRO[n]))],
+                         ids=[f"{n}:{leg[0]}" for n in MICRO for leg in MICRO[n]])
+def test_sharded_microbatched_step_matches_one_process(worlds, n, i):
+    """``n_microbatches=2`` under data parallel + ZeRO-1, FSDP and tensor
+    parallel against the one-process microbatched step."""
+    name, d, m, kw = MICRO[n][i]
+    for r, rep in enumerate(x[i] for x in worlds[n]["micro"]):
+        assert rep["mesh"] == {"data": d, "model": m} and rep["n_microbatches"] == 2
+        assert all(rep["errs"][k] <= tol for k, tol in TOLS.items()), (name, r, rep["errs"])
+        assert np.isfinite(rep["flow_loss"])
+        if kw.get("fsdp"):
+            assert rep["fsdp_sharded_params"] > 0
+        if m > 1:
+            assert rep["tp_sharded_params"] == 6
+
+
+def test_dryrun_micro_leg_accumulates_microbatches_on_each_rank(worlds):
+    """``dryrun.micro_leg``, the card's microbatched leg, in the world of 2
+    with 4 microbatches of 1 row: each rank runs two and sums their
+    gradients, held against its one-process microbatched run."""
+    for r, rep in enumerate(worlds[2]["micro-leg"]):
+        assert rep["mesh"] == {"data": 2, "model": 1} and rep["n_microbatches"] == 4
+        assert all(rep["errs"][k] <= tol for k, tol in TOLS.items()), (r, rep["errs"])
+        assert rep["ref_s"] > 0 and rep["leg_s"] > 0 and np.isfinite(rep["flow_loss"])
 
 
 def test_sharded_step_clips_by_the_whole_norm(worlds):
@@ -317,9 +362,21 @@ def test_sharded_step_matches_jax_shard_train_setup():
     2 of conftest's virtual devices, 2 steps from the same params on the same
     batch and keys: params, their change and metrics (relative to 1 +
     |m_jax|) within the dry run's CPU tolerances."""
+    _against_jax_shard_train_setup(1)
+
+
+@pytest.mark.slow
+def test_sharded_microbatched_step_matches_jax_shard_train_setup():
+    """As above, both steps made with ``n_microbatches=2``: JAX jits its
+    ``lax.scan`` over the microbatches on the mesh."""
+    _against_jax_shard_train_setup(2)
+
+
+def _against_jax_shard_train_setup(n_microbatches):
     from test_zero_sharding import _tiny_spec   # JAX's dry-run model
 
-    res = World(2, [("train", gathered_train_case, {})], timeout=300).result()["train"]
+    res = World(2, [("train", gathered_train_case, {"n_microbatches": n_microbatches})],
+                timeout=300).result()["train"]
     spec, jspec = dryrun.tiny_spec(), _tiny_spec()
     me = dryrun.Rank(0, 2, CPU, full=False)
     assert port_second_stage_spec(jspec, mcf_backend="cuda_unit") == spec
@@ -330,7 +387,8 @@ def test_sharded_step_matches_jax_shard_train_setup():
     opt = jtrain.make_optimizer(trainable, lr=dryrun.LR, warmup_steps=0, total_steps=100)
     jm = jmesh.make_mesh(n_data=2, n_model=1, devices=jax.devices()[:2])
     placed, step = jtrain.shard_train_setup(
-        jm, jtrain.init_state(trainable, opt), jtrain.make_train_step(jspec, frozen, opt),
+        jm, jtrain.init_state(trainable, opt),
+        jtrain.make_train_step(jspec, frozen, opt, n_microbatches=n_microbatches),
         zero_opt=True, donate=False, zero_min_size=512)
     batch = jmesh.shard_batch(jm, {k: v.numpy() for k, v in
                                    dryrun.global_batch(me, me.batch_rows).items()})

@@ -135,28 +135,35 @@ def mesh_case(rank, n):
             "grad_copy_to": gx_copy, "grad_reduce_from": gx_red, "uneven": uneven}
 
 
-def train_case(rank, n, meshes, **opt_kw):
+def train_case(rank, n, meshes, augment=0, **opt_kw):
     """Per mesh (n_data, n_model, options of the leg), STEPS sharded steps of
-    the dry run's tiny model against the one-process steps."""
+    the dry run's tiny model (with ``augment`` augment channels on the
+    flow's input) against the one-process steps."""
+    from dataclasses import replace
+
     from ipoke_tpu_torch.parallel import dryrun
 
     me = dryrun.Rank(rank, n, torch.device("cpu"), full=False)
+    if augment:
+        flow = me.train_spec.flow
+        me.train_spec = replace(me.train_spec, augment_channels=augment,
+                                flow=replace(flow, in_channels=flow.in_channels + augment))
     ref = dryrun.reference(me, **opt_kw)
     return [dryrun.train_leg(me, ref, d, m, **dict(kw, **opt_kw)) for d, m, kw in meshes]
 
 
-def gathered_train_case(rank, n):
+def gathered_train_case(rank, n, n_microbatches=1):
     """The dry run's data-parallel + ZeRO-1 step on its tiny model with
-    ``donate=False``, STEPS steps: the whole trainable params gathered after
-    them, the last step's metrics, and whether the state given stayed as it
-    was."""
+    ``donate=False`` and ``n_microbatches``, STEPS steps: the whole
+    trainable params gathered after them, the last step's metrics, and
+    whether the state given stayed as it was."""
     from ipoke_tpu_torch.parallel import dryrun
     from ipoke_tpu_torch.parallel import mesh as pmesh
     from ipoke_tpu_torch.train import second_stage as train_ss
 
     me = dryrun.Rank(rank, n, torch.device("cpu"), full=False)
     mesh = pmesh.make_mesh(n, 1)
-    state, step_fn = dryrun._setup(me, dryrun.params_for(me, 0))
+    state, step_fn = dryrun._setup(me, dryrun.params_for(me, 0), n_microbatches)
     start = [t.detach().clone() for t in train_ss.float_leaves(state.params)]
     placed, step = train_ss.shard_train_setup(mesh, state, step_fn, zero_opt=True, donate=False,
                                               zero_min_size=me.zero_min_size)
@@ -166,6 +173,15 @@ def gathered_train_case(rank, n):
     kept = all(torch.equal(a, b) for a, b in zip(train_ss.float_leaves(state.params), start))
     return {"params": step.full_params(placed), "metrics": {k: float(v) for k, v in
                                                            metrics.items()}, "kept": kept}
+
+
+def micro_leg_case(rank, n, n_microbatches):
+    """The dry run's microbatched leg (``dryrun.micro_leg``) on its tiny
+    model."""
+    from ipoke_tpu_torch.parallel import dryrun
+
+    return dryrun.micro_leg(dryrun.Rank(rank, n, torch.device("cpu"), full=False),
+                            n_microbatches)
 
 
 def sample_case(rank, n):
