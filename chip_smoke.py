@@ -323,6 +323,7 @@ from ipoke_tpu_torch.models import second_stage  # noqa: E402
 from ipoke_tpu_torch.models.discriminators import gradient_penalty, temp_disc_apply  # noqa: E402
 from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import _build  # noqa: E402
+from ipoke_tpu_torch.ops.cuda import launches_since  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1  # noqa: E402
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2  # noqa: E402
 from ipoke_tpu_torch.parallel import dryrun  # noqa: E402
@@ -335,7 +336,7 @@ from ipoke_tpu_torch.train import first_stage as train_fs  # noqa: E402
 from ipoke_tpu_torch.train import chunked  # noqa: E402
 from ipoke_tpu_torch.train import second_stage as train_ss  # noqa: E402
 from ipoke_tpu_torch.train.lr import second_stage_schedule as lr_schedule  # noqa: E402
-from ipoke_tpu_torch.utils import bench_e2e, prng, profile_decode, synth  # noqa: E402
+from ipoke_tpu_torch.utils import bench_e2e, prng, profile_decode, profiling, synth  # noqa: E402
 from ipoke_tpu_torch.utils.logging import read_metrics  # noqa: E402
 from ipoke_tpu_torch.utils.kernel_bench import (  # noqa: E402
     K1_KERNEL, K2_KERNEL, bound, card_line, device_ms, k1_clusters, k1_plan, k1_work,
@@ -546,11 +547,10 @@ def phase_slice(device, card, spec, params, n_requests=REQUESTS, b=BATCH):
     fs = spec.first_stage
     want = (1, b, fs.max_frames - 1, fs.spatial_size, fs.spatial_size, 3)
     lat = []
-    k1.mcf_inverse.launches = 0
-    k2.macow_unit_inverse.launches = 0
+    _zero_counts()
     for i, ((batch, z), backend) in enumerate(zip(requests, backends)):
         s = replace(spec, flow=replace(spec.flow, mcf_backend=backend))
-        before = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        before = _counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         vid = second_stage.forward_sample(params, s, batch, z=z)
@@ -558,16 +558,14 @@ def phase_slice(device, card, spec, params, n_requests=REQUESTS, b=BATCH):
         dt = time.perf_counter() - t0
         if backend == "cuda_unit":
             lat.append(dt)
-        n = (k1.mcf_inverse.launches - before[0], k2.macow_unit_inverse.launches - before[1])
+        n = tuple(a - b for a, b in zip(_counts(), before))
         finite = bool(torch.isfinite(vid).all())
         log(f"slice [{card}]: request {i} on '{backend}': {dt * 1e3:.1f} ms, shape "
             f"{tuple(vid.shape)}, finite {finite}, K1/K2 launches {n[0]}/{n[1]}")
         if tuple(vid.shape) != want or not finite or n != want_launches[backend]:
             raise SystemExit(f"slice: request {i} failed (shape {tuple(vid.shape)} want {want}, "
                              f"finite {finite}, K1/K2 launches {n} want {want_launches[backend]})")
-    launches = {"mcf_inverse": k1.mcf_inverse.launches,
-                "macow_unit_inverse": k2.macow_unit_inverse.launches}
-    return {"latency_s": lat, "launches": launches}
+    return {"latency_s": lat, "launches": launches_since(_since)}
 
 
 def phase_cross_check(device, spec, params, b=BATCH):
@@ -771,15 +769,14 @@ def phase_serve(card, spec, params, direct_s, b=BATCH, n_requests=SERVE_REQUESTS
     port = httpd.server_address[1]
     units = sum(spec.flow.num_steps) * 4
     try:
-        k1.mcf_inverse.launches = 0
-        k2.macow_unit_inverse.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         batcher.warmup()
         warm_s = time.perf_counter() - t0
         res = loadtest.run(port, requests=n_requests, procs=procs, conns=conns,
                            size=spec.first_stage.spatial_size, fmt="npy_u8", timeout=600)
         stats = json.loads(_http(port, "GET", "/stats"))
-        n = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        n = _counts()
     finally:
         _stop_server(httpd, thread, batcher)
     n_warm = len(batcher.buckets)
@@ -856,13 +853,18 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+_since = {}
+
+
 def _counts():
-    return k1.mcf_inverse.launches, k2.macow_unit_inverse.launches
+    """K1's and K2's launches since the last ``_zero_counts()``."""
+    n = launches_since(_since)
+    return n["mcf_inverse"], n["macow_unit_inverse"]
 
 
 def _zero_counts():
-    k1.mcf_inverse.launches = 0
-    k2.macow_unit_inverse.launches = 0
+    global _since
+    _since = profiling.counts()
 
 
 def _median(xs):
@@ -1220,11 +1222,10 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         dirs = {k: os.path.join(tmp, k) for k in ("ckpt", "config", "generated", "log")}
         free_gb = shutil.disk_usage(tmp).free / 1e9
-        k1.mcf_inverse.launches = 0
-        k2.macow_unit_inverse.launches = 0
+        _zero_counts()
         torch.cuda.reset_peak_memory_stats()
         run = experiment.train(config, dirs, device=device, max_steps=1 + steps)
-        n_step = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        n_step = _counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         if run["spec"] != spec:
             raise SystemExit(f"train: the config's spec is not the registry's {entry.name} "
@@ -1284,11 +1285,10 @@ def phase_train(device, card, entry, steps=TRAIN_STEPS):
         x, _ = second_stage.encode_first_stage(trained, spec, batch["images"])
         cond = second_stage.embed_cond(trained, spec, batch["images"][:, 0], batch["poke"])
         z, logdet = transformer.forward(flow, spec.flow, x, cond)
-        k1.mcf_inverse.launches = 0
-        k2.macow_unit_inverse.launches = 0
+        _zero_counts()
         x_back = transformer.reverse(flow, replace(spec.flow, mcf_backend="cuda_unit"), z, cond)
         torch.cuda.synchronize()
-        n_rt = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        n_rt = _counts()
     err = (x_back - x).abs().max().item()
     log(f"train: round trip on the trained params: max |reverse(forward(x)) - x| {err:.3g} "
         f"(tolerance {TRAIN_TOL}; |x| up to {x.abs().max().item():.3g}, logdet "
@@ -2905,7 +2905,7 @@ def _ae_batches(cfg, device, keys, n=2):
 
 def _ae_steps(card, device, name, step_fn, state, batches, steps):
     """One warm-up step then ``steps`` timed ones: host ms to a synchronised
-    card, each phase's ms by CUDA events, the peak memory, the logs."""
+    card, the step's ms by CUDA events, the peak memory, the logs."""
     rng = prng.prng_key(0)
     hist = []
     held = torch.cuda.memory_allocated() / 2**30    # earlier phases' live tensors
@@ -2913,27 +2913,16 @@ def _ae_steps(card, device, name, step_fn, state, batches, steps):
     for i in range(1 + steps):
         batch = next(batches)
         rng, sub = prng.split(rng)
-        events = [torch.cuda.Event(enable_timing=True)]
-        names = []
-
-        def on_phase(phase):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-            names.append(phase)
-
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         events[0].record()
-        if isinstance(state, train_enc.AETrainState):
-            state, logs = step_fn(state, batch, sub, on_phase=on_phase)
-        else:
-            state, logs = step_fn(state, batch, sub)
-            on_phase("events")
+        state, logs = step_fn(state, batch, sub)
+        events[1].record()
         torch.cuda.synchronize()
         h = {k: float(v) for k, v in logs.items()}
         h["step_ms"] = (time.perf_counter() - t0) * 1e3
-        h.update({f"{n}_ms": events[j].elapsed_time(events[j + 1]) for j, n in enumerate(names)})
+        h["events_ms"] = events[0].elapsed_time(events[1])
         hist.append(h)
         log(f"data [{card}]: {name} step {i}{' (warm-up)' if i == 0 else ''}: "
             + ", ".join(f"{k} {v:.6g}" for k, v in h.items()))

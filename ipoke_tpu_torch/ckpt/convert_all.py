@@ -45,8 +45,7 @@ from ipoke_tpu_torch import registry, resolve_device
 from ipoke_tpu_torch.ckpt import io
 from ipoke_tpu_torch.ckpt import torch_import as ti
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
-from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
-from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+from ipoke_tpu_torch.ops.cuda import launches_since
 
 # exact released checkpoint filenames (reference models/pretrained_models.py)
 SUB_CKPTS = {
@@ -206,17 +205,6 @@ def convert_model(root: str, model: str, out_root: str, verify: bool = True, dev
     return result
 
 
-def launch_counts():
-    """The MCF kernels' launch counters of this process (K1, K2)."""
-    return {"mcf_inverse": k1.mcf_inverse.launches,
-            "macow_unit_inverse": k2.macow_unit_inverse.launches}
-
-
-def launches_since(before):
-    """The MCF kernels' launches in this process since the counts ``before``."""
-    return {k: v - before[k] for k, v in launch_counts().items()}
-
-
 def _self_check(params, spec, device=None):
     """Cheap invariants after a conversion: the flow schema round trip
     export_flow -> convert_flow (catches key-mapping drift) and a finite
@@ -224,7 +212,7 @@ def _self_check(params, spec, device=None):
     shape and assembly errors).  ``launches``: the MCF kernels' launches of
     the sample."""
     from ipoke_tpu_torch.models import second_stage
-    from ipoke_tpu_torch.utils import prng
+    from ipoke_tpu_torch.utils import prng, profiling
 
     device = resolve_device(device)
     flat1 = dict(_flat(params["flow"]))
@@ -235,7 +223,7 @@ def _self_check(params, spec, device=None):
     s = spec.first_stage.spatial_size
     batch = {"images": torch.zeros((1, spec.first_stage.max_frames, s, s, 3), device=device),
              "poke": torch.zeros((1, s, s, 2), device=device)}
-    before = launch_counts()
+    before = profiling.counts()
     with torch.no_grad():
         vid = second_stage.forward_sample(bridge_second_stage(params, spec, device), spec, batch,
                                           prng.prng_key(0))

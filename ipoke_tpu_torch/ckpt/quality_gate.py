@@ -40,6 +40,8 @@ from typing import Optional
 from ipoke_tpu_torch import registry, resolve_device
 from ipoke_tpu_torch.ckpt import convert_all, io
 from ipoke_tpu_torch.ckpt.jax_bridge import bridge_second_stage
+from ipoke_tpu_torch.ops.cuda import launches_since
+from ipoke_tpu_torch.utils import profiling
 
 # common mount points of the data tree (``~``: the user's home)
 CANDIDATE_MOUNTS = ("~/data", "/mnt/data", "/data", "~/ipoke_data")
@@ -111,10 +113,10 @@ def gate_model(root: str, model: str, converted_npz: str, *,
     gen_dir = os.path.join(out_root, "logs", "second_stage", "generated", model)
     os.makedirs(gen_dir, exist_ok=True)
     t0 = time.perf_counter()
-    before = convert_all.launch_counts()
+    before = profiling.counts()
     out = test_modes.run_fvd(params, spec, config, StaticDataModule(data_cfg),
                              {"generated": gen_dir})
-    launches = convert_all.launches_since(before)
+    launches = launches_since(before)
     pretrained = bool(out.get("i3d_pretrained"))
     score = out.get("FVD", out.get("FVD_UNPRETRAINED"))
     res = {

@@ -28,7 +28,7 @@ from ipoke_tpu_torch.flows import actnorm, attention, mcf, nice, permute
 from ipoke_tpu_torch.flows.nice import nice_channels
 from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.ops.cuda.mcf_unit_inverse import macow_unit_inverse_cuda
-from ipoke_tpu_torch.utils import prng
+from ipoke_tpu_torch.utils import prng, profiling
 
 MCF_BACKENDS = ("scan", "cuda", "cuda_unit")
 
@@ -350,10 +350,12 @@ def multiscale_inverse(p, y, h, spec: FlowSpec):
     for c in chans:
         z2s.append(out[..., c - cs:c])
         out = out[..., :c - cs]
-    for level, f, z2 in zip(reversed(p["levels"]), reversed(spec.level_factors()), reversed(z2s)):
-        out = torch.cat([out, z2], dim=-1)
-        out = _perm_inv(level["shuffle"], out, spec)
-        out = prior_inverse(level["prior"], out, h, f, spec)
-        for step in reversed(level["steps"]):
-            out = macow_step_inverse(step, out, h, spec)
+    levels = zip(p["levels"], spec.level_factors(), z2s)
+    for k, (level, f, z2) in reversed(list(enumerate(levels))):
+        with profiling.span(f"flow.level.{k}"):
+            out = torch.cat([out, z2], dim=-1)
+            out = _perm_inv(level["shuffle"], out, spec)
+            out = prior_inverse(level["prior"], out, h, f, spec)
+            for step in reversed(level["steps"]):
+                out = macow_step_inverse(step, out, h, spec)
     return out

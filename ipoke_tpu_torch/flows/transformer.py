@@ -8,6 +8,7 @@ from __future__ import annotations
 from ipoke_tpu_torch.flows import macow, multistack
 from ipoke_tpu_torch.flows.macow import FlowSpec
 from ipoke_tpu_torch.flows.multistack import StackSpec
+from ipoke_tpu_torch.utils import profiling
 
 
 def spec_from_config(arch: dict, mcf_backend: str = "scan") -> FlowSpec:
@@ -72,9 +73,10 @@ def forward(params, spec, x, cond):
 
 
 def reverse(params, spec, z, cond):
-    if is_stack(spec):
-        return multistack.inverse(params, z, cond, spec)
-    return macow.multiscale_inverse(params, z, cond, spec)
+    with profiling.span("flow.reverse"):
+        if is_stack(spec):
+            return multistack.inverse(params, z, cond, spec)
+        return macow.multiscale_inverse(params, z, cond, spec)
 
 
 def reverse_input_shape(spec, batch: int, spatial: int, channels: int):

@@ -16,7 +16,7 @@ from ipoke_tpu_torch.models import conv_gru, decoder, motion_encoder
 from ipoke_tpu_torch.models.decoder import SpadeDecoderSpec
 from ipoke_tpu_torch.models.motion_encoder import MotionEncoderSpec
 from ipoke_tpu_torch.nn import blocks
-from ipoke_tpu_torch.utils import prng
+from ipoke_tpu_torch.utils import prng, profiling
 
 DECODE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -119,25 +119,26 @@ def decode(params, motion, start_frame, spec: FirstStageSpec, length: int,
     each frame's decoder runs under activation checkpointing, so its backward
     recomputes one frame's activations instead of keeping every frame's.
     """
-    dec_spec = spec.decoder_spec
-    b = start_frame.shape[0]
-    hidden = [motion] * spec.n_gru_layers
-    if spec.motion_bias:
-        bias = params["motion_bias"].to(motion.dtype)
-        in_rnn = bias.expand((b,) + tuple(bias.shape[1:]))
-    else:
-        in_rnn = motion
-    dtype = DECODE_DTYPES[spec.decode_dtype]
-    gen = _cast_floats(params["gen"], dtype)
-    start_frame = start_frame.to(dtype)
-    spade_feats = decoder.precompute_spade_feats(gen, start_frame, dec_spec)
-    frames = []
-    for _ in range(length):
-        hidden = conv_gru.stack_apply(params["rnn"], in_rnn, hidden)
-        args = (gen, hidden[-1].to(dtype), start_frame, dec_spec, spade_feats)
-        frames.append(checkpoint(decoder.apply, *args, use_reentrant=False) if remat_body
-                      else decoder.apply(*args))
-    return torch.stack(frames, dim=1).to(motion.dtype)
+    with profiling.span("first_stage.decode"):
+        dec_spec = spec.decoder_spec
+        b = start_frame.shape[0]
+        hidden = [motion] * spec.n_gru_layers
+        if spec.motion_bias:
+            bias = params["motion_bias"].to(motion.dtype)
+            in_rnn = bias.expand((b,) + tuple(bias.shape[1:]))
+        else:
+            in_rnn = motion
+        dtype = DECODE_DTYPES[spec.decode_dtype]
+        gen = _cast_floats(params["gen"], dtype)
+        start_frame = start_frame.to(dtype)
+        spade_feats = decoder.precompute_spade_feats(gen, start_frame, dec_spec)
+        frames = []
+        for _ in range(length):
+            hidden = conv_gru.stack_apply(params["rnn"], in_rnn, hidden)
+            args = (gen, hidden[-1].to(dtype), start_frame, dec_spec, spade_feats)
+            frames.append(checkpoint(decoder.apply, *args, use_reentrant=False) if remat_body
+                          else decoder.apply(*args))
+        return torch.stack(frames, dim=1).to(motion.dtype)
 
 
 def forward(params, x, spec: FirstStageSpec, rng=None, remat_decode: bool = False):

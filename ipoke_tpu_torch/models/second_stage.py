@@ -26,7 +26,7 @@ from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.nn.blocks import init_conv
 from ipoke_tpu_torch.nn.core import conv2d, conv_transpose2d
 from ipoke_tpu_torch.parallel.mesh import axis_index, axis_size
-from ipoke_tpu_torch.utils import prng
+from ipoke_tpu_torch.utils import prng, profiling
 
 
 @dataclass(frozen=True)
@@ -164,22 +164,25 @@ def _adapt(p_conv, x, src_size, tgt_size):
 
 def embed_cond(params, spec: SecondStageSpec, x0, poke):
     """cond = cat([conditioner(x0) mean, poke_embedder(poke)]): (B, s, s, h_channels)."""
-    if spec.poke_and_image:
-        poke = torch.cat([poke, x0], dim=-1)
-    with torch.no_grad():
-        poke_emb, _, _ = encoders.wrapper_encode(params["poke_embedder"], poke, spec.poke_embedder)
-    if "conv_adapt_poke_emb" in params:
-        poke_emb = _adapt(params["conv_adapt_poke_emb"], poke_emb,
-                          spec.poke_embedder.min_spatial_size, spec.first_stage.min_spatial_size)
-    if not spec.use_cond:
-        return poke_emb
-    with torch.no_grad():
-        out, mean, _ = encoders.wrapper_encode(params["conditioner"], x0, spec.conditioner)
-    cond = out if spec.conditioner.deterministic else mean
-    if "conv_adapt_cond" in params:
-        cond = _adapt(params["conv_adapt_cond"], cond,
-                      spec.conditioner.min_spatial_size, spec.first_stage.min_spatial_size)
-    return torch.cat([cond, poke_emb], dim=-1)
+    with profiling.span("second_stage.embed_cond"):
+        if spec.poke_and_image:
+            poke = torch.cat([poke, x0], dim=-1)
+        with torch.no_grad():
+            poke_emb, _, _ = encoders.wrapper_encode(params["poke_embedder"], poke,
+                                                     spec.poke_embedder)
+        if "conv_adapt_poke_emb" in params:
+            poke_emb = _adapt(params["conv_adapt_poke_emb"], poke_emb,
+                              spec.poke_embedder.min_spatial_size,
+                              spec.first_stage.min_spatial_size)
+        if not spec.use_cond:
+            return poke_emb
+        with torch.no_grad():
+            out, mean, _ = encoders.wrapper_encode(params["conditioner"], x0, spec.conditioner)
+        cond = out if spec.conditioner.deterministic else mean
+        if "conv_adapt_cond" in params:
+            cond = _adapt(params["conv_adapt_cond"], cond,
+                          spec.conditioner.min_spatial_size, spec.first_stage.min_spatial_size)
+        return torch.cat([cond, poke_emb], dim=-1)
 
 
 def encode_first_stage(params, spec: SecondStageSpec, x):
@@ -252,38 +255,41 @@ def forward_sample(params, spec: SecondStageSpec, batch, rng=None, n_samples: in
     ``rng``) is the global batch's: the rank takes its rows of it and
     returns its rows of the videos, which are the one-process videos' rows.
     """
-    x = batch["images"]
-    poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
-    x0 = x[:, 0]
-    b = x.shape[0]
-    if length is None:
-        length = x.shape[1] - 1
-    n_data, i = (1, 0) if mesh is None else (axis_size(mesh, "data"), axis_index(mesh, "data"))
-    z_shape = transformer.reverse_input_shape(spec.flow, b * n_data, spec.latent_size,
-                                              spec.flow_in_channels)
-    if z is None:
-        if rng is None:
-            raise ValueError("forward_sample needs a fixed z or a JAX key rng")
-        z = torch.stack([prng.normal(k, z_shape, x.device) for k in prng.split(rng, n_samples)])
-    elif z.dim() == len(z_shape):
-        z = z[None]
-    if mesh is not None:   # this rank's rows of the global draw
-        if tuple(z.shape[1:]) != tuple(z_shape):
-            raise ValueError(f"z of shape {tuple(z.shape)} for a global batch of {z_shape}")
-        z = z[:, i * b:(i + 1) * b]
-        z_shape = (b,) + tuple(z_shape[1:])
-    n = z.shape[0]
-    cond = embed_cond(params, spec, x0, poke)
+    profiling.count("second_stage.calls")
+    with profiling.span("second_stage.forward_sample"):
+        x = batch["images"]
+        poke = batch["flow"] if spec.use_flow_as_poke else batch["poke"]
+        x0 = x[:, 0]
+        b = x.shape[0]
+        if length is None:
+            length = x.shape[1] - 1
+        n_data, i = (1, 0) if mesh is None else (axis_size(mesh, "data"), axis_index(mesh, "data"))
+        z_shape = transformer.reverse_input_shape(spec.flow, b * n_data, spec.latent_size,
+                                                  spec.flow_in_channels)
+        if z is None:
+            if rng is None:
+                raise ValueError("forward_sample needs a fixed z or a JAX key rng")
+            z = torch.stack([prng.normal(k, z_shape, x.device) for k in prng.split(rng, n_samples)])
+        elif z.dim() == len(z_shape):
+            z = z[None]
+        if mesh is not None:   # this rank's rows of the global draw
+            if tuple(z.shape[1:]) != tuple(z_shape):
+                raise ValueError(f"z of shape {tuple(z.shape)} for a global batch of {z_shape}")
+            z = z[:, i * b:(i + 1) * b]
+            z_shape = (b,) + tuple(z_shape[1:])
+        n = z.shape[0]
+        cond = embed_cond(params, spec, x0, poke)
 
-    def rep(t):  # (B, ...) -> (n*B, ...), sample-major like z
-        return t.unsqueeze(0).expand((n,) + tuple(t.shape)).reshape((n * b,) + tuple(t.shape[1:]))
+        def rep(t):  # (B, ...) -> (n*B, ...), sample-major like z
+            return t.unsqueeze(0).expand((n,) + tuple(t.shape)).reshape(
+                (n * b,) + tuple(t.shape[1:]))
 
-    motion = transformer.reverse(params["flow"], spec.flow,
-                                 z.to(x.dtype).reshape((n * b,) + tuple(z_shape[1:])), rep(cond))
-    if spec.augment_channels:
-        motion = motion[..., :-spec.augment_channels]
-    x0r = rep(x0)
-    vid = decode_first_stage(params, spec, motion, x0r, length)
-    if add_first_frame:
-        vid = torch.cat([x0r[:, None], vid], dim=1)
-    return vid.reshape((n, b) + tuple(vid.shape[1:]))
+        z = z.to(x.dtype).reshape((n * b,) + tuple(z_shape[1:]))
+        motion = transformer.reverse(params["flow"], spec.flow, z, rep(cond))
+        if spec.augment_channels:
+            motion = motion[..., :-spec.augment_channels]
+        x0r = rep(x0)
+        vid = decode_first_stage(params, spec, motion, x0r, length)
+        if add_first_frame:
+            vid = torch.cat([x0r[:, None], vid], dim=1)
+        return vid.reshape((n, b) + tuple(vid.shape[1:]))

@@ -27,7 +27,8 @@ and w_shift as stored.  ``cluster_plan`` picks G.
 ``mcf_inverse_plain``, taken for CPU tensors only, and its fake
 implementation gives ``torch.export`` the output's shape, so an exported
 graph holds one ``ipoke::mcf_inverse`` node per MCF.  No autograd formula is registered: the JAX kernel has no backward
-either.  ``mcf_inverse.launches`` counts kernel launches.
+either.  Each launch adds one to the counter ``mcf.k1_launches``
+(``utils/profiling``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from ipoke_tpu_torch.flows.transforms import get_transform
 from ipoke_tpu_torch.nn.core import activation
 from ipoke_tpu_torch.ops.cuda import _build
+from ipoke_tpu_torch.utils import profiling
 
 ORDERS = ("A", "B", "C", "D")   # conv1..conv4 of a MaCowUnit
 CLUSTER_SIZES = (1, 2, 4, 8)    # portable thread-block cluster sizes on sm_90
@@ -158,7 +160,7 @@ def mcf_inverse_plain(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", tr
 
 def launch(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=None):
     """K1 on CUDA tensors, read as stored, through its ctypes binding: the
-    checks, one launch, ``mcf_inverse.launches`` + 1.  ``cluster`` fixes G
+    checks, one launch, ``mcf.k1_launches`` + 1.  ``cluster`` fixes G
     (the tests and the sweep); by default ``cluster_plan`` picks it."""
     if z.device.type != "cuda":
         raise ValueError(f"mcf_inverse: no kernel for device {z.device}")
@@ -193,7 +195,7 @@ def launch(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=None)
         kseq, kpar, float(alpha), _build.ACT_CODES[act], int(order in "CD"), int(order in "BD"),
         g, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("mcf_inverse", err)
-    mcf_inverse.launches += 1
+    profiling.count("mcf.k1_launches")
     return out
 
 
@@ -227,6 +229,3 @@ def mcf_inverse(z, h, w_shift, w1, b1, order="A", alpha=1.0, act="elu", cluster=
     CPU tensors."""
     return torch.ops.ipoke.mcf_inverse(z, h, [w_shift, w1, b1], order, float(alpha), act,
                                        cluster)
-
-
-mcf_inverse.launches = 0

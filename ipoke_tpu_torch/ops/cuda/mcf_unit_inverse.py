@@ -29,7 +29,7 @@ once per line, summed in rank order.  ``slice_plan`` picks the slices,
 implementation gives ``torch.export`` the output's shape, so an exported
 graph holds one ``ipoke::macow_unit_inverse`` node per MaCowUnit.  No
 autograd formula is registered: the JAX kernel has no backward either.
-``macow_unit_inverse.launches`` counts kernel launches.
+Each launch adds one to the counter ``mcf.k2_launches`` (``utils/profiling``).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from ipoke_tpu_torch.nn.core import weight_norm_materialize
 from ipoke_tpu_torch.ops.cuda import _build
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
 from ipoke_tpu_torch.ops.cuda.mcf_inverse import ORDERS, mcf_inverse_plain
+from ipoke_tpu_torch.utils import profiling
 
 SLICES = 2   # the ring of weight slices: the MCF that scans and the one staged behind it
 
@@ -118,7 +119,7 @@ def macow_unit_inverse_plain(y, h, weights, an1, an2, alpha=1.0, act="elu"):
 
 def launch(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
     """K2 on CUDA tensors through its ctypes binding: the checks, one launch,
-    ``macow_unit_inverse.launches`` + 1.  ``cluster`` fixes G (the tests and
+    ``mcf.k2_launches`` + 1.  ``cluster`` fixes G (the tests and
     the sweep); by default ``cluster_plan`` picks it."""
     if y.device.type != "cuda":
         raise ValueError(f"macow_unit_inverse: no kernel for device {y.device}")
@@ -160,7 +161,7 @@ def launch(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=None):
         float(alpha), _build.ACT_CODES[act], g, slices,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("macow_unit_inverse", err)
-    macow_unit_inverse.launches += 1
+    profiling.count("mcf.k2_launches")
     return out
 
 
@@ -202,9 +203,6 @@ def macow_unit_inverse(y, h, weights, an1, an2, alpha=1.0, act="elu", cluster=No
         raise ValueError(f"macow_unit_inverse: {len(weights)} weight sets, want 4 (conv1..conv4)")
     return torch.ops.ipoke.macow_unit_inverse(y, h, [t for w in weights for t in w], an1, an2,
                                               float(alpha), act, cluster)
-
-
-macow_unit_inverse.launches = 0
 
 
 def unit_weights(unit_p):

@@ -64,14 +64,13 @@ from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.models.motion_encoder import MotionEncoderSpec
 from ipoke_tpu_torch.models.second_stage import SecondStageSpec
-from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
-from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+from ipoke_tpu_torch.ops.cuda import launches_since
 from ipoke_tpu_torch.parallel import distributed, seqpar
 from ipoke_tpu_torch.parallel import mesh as pmesh
 from ipoke_tpu_torch.parallel import sharding as psh
 from ipoke_tpu_torch.serve.batcher import CUDA_BATCH_TOL
 from ipoke_tpu_torch.train import second_stage as train_ss
-from ipoke_tpu_torch.utils import prng, synth
+from ipoke_tpu_torch.utils import prng, profiling, synth
 
 GAIN = 0.02           # the flow's output-conv gains (utils/synth.set_flow_output_gains)
 STEPS = 2             # train steps per leg
@@ -241,15 +240,14 @@ def train_leg(me, ref, n_data, n_model, fsdp=False, zero_opt=True, tp=True, dona
     del state
     batch = pmesh.shard_batch(mesh, global_batch(me, me.batch_rows))
     ms = []
-    k1.mcf_inverse.launches = k2.macow_unit_inverse.launches = 0
+    before = profiling.counts()
     for key in _keys():
         me.sync()
         t0 = time.perf_counter()
         placed, metrics = step(placed, batch, key)
         me.sync()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"mcf_inverse": k1.mcf_inverse.launches,
-                "macow_unit_inverse": k2.macow_unit_inverse.launches}
+    launches = launches_since(before)
     peak = me.peak_gib()
     # this rank's pieces against the same pieces of the one-process run
     errs = {"params": 0.0, "update": 0.0, "mu": 0.0}
@@ -339,14 +337,13 @@ def sample_leg(me):
     out = {"mesh": {"data": me.n_data, "model": me.n_model}}
     for name, kw in (("z_fixed", {"z": z}), ("z_drawn", {"rng": rng})):
         me.sync()
-        k1.mcf_inverse.launches = k2.macow_unit_inverse.launches = 0
+        before = profiling.counts()
         t0 = time.perf_counter()
         got = second_stage.forward_sample(params, spec, local, add_first_frame=True, mesh=mesh,
                                           **kw)
         me.sync()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = {"mcf_inverse": k1.mcf_inverse.launches,
-                    "macow_unit_inverse": k2.macow_unit_inverse.launches}
+        launches = launches_since(before)
         want = pmesh.shard_batch(mesh, second_stage.forward_sample(
             params, spec, batch, add_first_frame=True, **kw)[0])
         out[name] = {"max_abs_err": (got[0] - want).abs().max().item(), "ms": ms,

@@ -174,12 +174,10 @@ class ImageAELosses:
 def make_image_ae_step(spec: WrapperSpec, disc_spec: PatchDiscSpec, optimizers,
                        kl_weight=1e-6, disc_active=True, vgg: VGG19 = None):
     """``train_step(state, batch, rng) -> (state, logs)``; ``rng`` a JAX key
-    (``utils/prng``), ``batch['images']`` (B, T, S, S, 3).  ``on_phase``,
-    when given to ``train_step``, is called with "disc" and "gen" after each
-    net's update (a benchmark records its timing events there)."""
+    (``utils/prng``), ``batch['images']`` (B, T, S, S, 3)."""
     losses = ImageAELosses(spec, disc_spec, kl_weight, disc_active, vgg)
 
-    def train_step(state: AETrainState, batch, rng, on_phase=lambda name: None):
+    def train_step(state: AETrainState, batch, rng):
         x = batch["images"][:, -1]     # the reference trains on the last frame
         r1, _ = prng.split(rng)
         with torch.no_grad():
@@ -188,12 +186,10 @@ def make_image_ae_step(spec: WrapperSpec, disc_spec: PatchDiscSpec, optimizers,
         _update(optimizers["disc"], state.disc_opt_state, state.disc_params,
                 _grads(d_loss, state.disc_params))
         blocks.refresh_spectral_u(state.disc_params)
-        on_phase("disc")
 
         loss, logs = losses.gen_loss(state.params, state.disc_params, x, r1)
         _update(optimizers["gen"], state.opt_state, state.params, _grads(loss, state.params))
         encoders.refresh_spectral_u(state.params["model"])
-        on_phase("gen")
         logs["d_loss"] = d_loss
         return state._replace(step=state.step + 1), {k: v.detach() for k, v in logs.items()}
 

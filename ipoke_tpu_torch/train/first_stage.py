@@ -32,7 +32,7 @@ from ipoke_tpu_torch.nn.blocks import materialize_spectral_norm, refresh_spectra
 from ipoke_tpu_torch.nn.core import Policy
 from ipoke_tpu_torch.train.losses import kl_divergence, l1
 from ipoke_tpu_torch.train.second_stage import Optimizer, float_leaves, torch_adam
-from ipoke_tpu_torch.utils import prng
+from ipoke_tpu_torch.utils import prng, profiling
 
 NETS = ("gen", "ds", "dt")
 REMAT_MODES = ("none", "outer", "decode", "both")
@@ -252,33 +252,46 @@ def make_gan_train_step(fs_spec: FirstStageSpec, ds_spec: PatchDiscSpec, dt_spec
     ``r_fwd, r_crop, _ = split(rng, 3)`` are shared by the discriminators'
     pass and the generator's, as in the JAX package.  ``on_phase``, when
     given to ``train_step``, is called with "dt", "ds" and "gen" after each
-    net's update (a benchmark records its timing events there)."""
+    net's update (a benchmark records its timing events there).  The step
+    and its phases are spans (``utils/profiling``): ``gan.step`` around
+    ``gan.plan``, ``gan.gen_forward``, ``gan.dt``, ``gan.ds`` and ``gan.gen``."""
     losses = GanLosses(fs_spec, ds_spec, dt_spec, w_vgg, w_l1, w_kl, remat, vgg_chunks,
                        disc_bf16, forward_fn=forward_fn)
     mf_dt = dt_spec.sequence_length
 
     def train_step(state: GanTrainState, batch, rng, on_phase=lambda name: None):
-        x = batch["images"]
-        r_fwd, r_crop, _ = prng.split(rng, 3)
-        plan = crop_plan(r_crop, x.shape[0], x.shape[1], mf_dt, n_spatial_examples)
-        with torch.no_grad():   # the generator's output for the discriminator updates
-            x_hat, _, _ = losses.forward_gen(state.gen_params, x, r_fwd, batch)
-        x_true, x_fake, f_true, f_fake = crops(x, x_hat, plan)
+        with profiling.span("gan.step"):
+            return _train_step(state, batch, rng, on_phase)
 
-        loss_dt, gp_dt = losses.disc_loss("dt", state.dt_params, x_true, x_fake)
-        _update(optimizers["dt"], state.dt_opt, state.dt_params, _grads(loss_dt, state.dt_params))
-        refresh_spectral_u(state.dt_params)
+    def _train_step(state, batch, rng, on_phase):
+        x = batch["images"]
+        with profiling.span("gan.plan"):
+            r_fwd, r_crop, _ = prng.split(rng, 3)
+            plan = crop_plan(r_crop, x.shape[0], x.shape[1], mf_dt, n_spatial_examples)
+        with profiling.span("gan.gen_forward"):
+            with torch.no_grad():   # the generator's output for the discriminator updates
+                x_hat, _, _ = losses.forward_gen(state.gen_params, x, r_fwd, batch)
+            x_true, x_fake, f_true, f_fake = crops(x, x_hat, plan)
+
+        with profiling.span("gan.dt"):
+            loss_dt, gp_dt = losses.disc_loss("dt", state.dt_params, x_true, x_fake)
+            _update(optimizers["dt"], state.dt_opt, state.dt_params,
+                    _grads(loss_dt, state.dt_params))
+            refresh_spectral_u(state.dt_params)
         on_phase("dt")
 
-        loss_ds, _ = losses.disc_loss("ds", state.ds_params, f_true, f_fake)
-        _update(optimizers["ds"], state.ds_opt, state.ds_params, _grads(loss_ds, state.ds_params))
-        refresh_spectral_u(state.ds_params)
+        with profiling.span("gan.ds"):
+            loss_ds, _ = losses.disc_loss("ds", state.ds_params, f_true, f_fake)
+            _update(optimizers["ds"], state.ds_opt, state.ds_params,
+                    _grads(loss_ds, state.ds_params))
+            refresh_spectral_u(state.ds_params)
         on_phase("ds")
 
-        loss_g, logs = losses.gen_loss(state.gen_params, state.dt_params, state.ds_params, x,
-                                       r_fwd, plan, batch)
-        _update(optimizers["gen"], state.gen_opt, state.gen_params,
-                _grads(loss_g, state.gen_params))
+        with profiling.span("gan.gen"):
+            loss_g, logs = losses.gen_loss(state.gen_params, state.dt_params, state.ds_params, x,
+                                           r_fwd, plan, batch)
+            _update(optimizers["gen"], state.gen_opt, state.gen_params,
+                    _grads(loss_g, state.gen_params))
         on_phase("gen")
         metrics = {"loss_d_dt": loss_dt, "loss_gp_dt": gp_dt, "loss_d_ds": loss_ds, **logs}
         return state._replace(step=state.step + 1), {k: v.detach() for k, v in metrics.items()}

@@ -58,13 +58,13 @@ from ipoke_tpu_torch.models.discriminators import PatchDiscSpec, TempDiscSpec
 from ipoke_tpu_torch.models.encoders import WrapperSpec
 from ipoke_tpu_torch.models.first_stage import FirstStageSpec
 from ipoke_tpu_torch.models.second_stage import SecondStageSpec
-from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+from ipoke_tpu_torch.ops.cuda import launches_since
 from ipoke_tpu_torch.train import chunked
 from ipoke_tpu_torch.train import distill as tdist
 from ipoke_tpu_torch.train import encoders as tenc
 from ipoke_tpu_torch.train import first_stage as tfs
 from ipoke_tpu_torch.train import second_stage as tss
-from ipoke_tpu_torch.utils import prng
+from ipoke_tpu_torch.utils import prng, profiling
 from ipoke_tpu_torch.utils import video as vid_util
 
 T0 = time.time()
@@ -143,7 +143,7 @@ def main(argv=None):
     if cuda:   # f32 convs and matmuls in full f32, as the JAX package computes
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    launches0 = k2.macow_unit_inverse.launches
+    counts0 = profiling.counts()
     S, T, B = args.size, args.frames, args.batch
     spec = build_spec(args)
     fs_spec, poke_spec, cond_spec = spec.first_stage, spec.poke_embedder, spec.conditioner
@@ -401,7 +401,7 @@ def main(argv=None):
         "artifacts_dir": args.out,
         "wall_s": round(time.time() - T0, 1),
         "device": where,
-        "k2_launches": k2.macow_unit_inverse.launches - launches0,
+        "k2_launches": launches_since(counts0)["macow_unit_inverse"],
         **counts,
     }
     print(json.dumps(out), flush=True)

@@ -1,0 +1,8 @@
+"""Share of the span window in which the card is idle while a train step
+(the span ``gan.step``) is open on the calling thread: the host's part of
+the idle time, the harness's left out (``portbench/spans.py``)."""
+from portbench.spans import idle_pct
+
+
+def read(r):
+    return idle_pct(r, "train", "gan.step")

@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from ipoke_tpu_torch.flows import mcf
-from ipoke_tpu_torch.ops.cuda import _build
+from ipoke_tpu_torch.ops.cuda import _build, launches_since
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
 from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+from ipoke_tpu_torch.utils import profiling
 
 TOL = 2e-4   # tests/test_pallas_mcf.py, tests/test_pallas_unit.py
 
@@ -54,10 +55,10 @@ K1_CASES = [(c, hc, g, order) for c, hc in [(32, 128), (64, 128), (4, 0), (6, 12
 @pytest.mark.parametrize("c,hc,g,order", K1_CASES)
 def test_k1_kernel_matches_plain(cuda, c, hc, g, order):
     z, h, w, w1, b1 = _mcf(c, hc, order, cuda, c)
-    n0 = k1.mcf_inverse.launches
+    n0 = profiling.counts()
     out = k1.mcf_inverse(z, h, w, w1, b1, order, cluster=g)
     torch.cuda.synchronize()
-    assert k1.mcf_inverse.launches == n0 + 1
+    assert launches_since(n0)["mcf_inverse"] == 1
     ref = k1.mcf_inverse_plain(z, h, w, w1, b1, order)
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
@@ -119,10 +120,10 @@ K2_CASES = [(c, hc, g) for c, hc in [(32, 128), (64, 128), (4, 0), (6, 12)]
 @pytest.mark.parametrize("c,hc,g", K2_CASES)
 def test_k2_kernel_matches_plain(cuda, c, hc, g):
     y, h, weights, an1, an2 = _unit(c, hc, cuda, 100 + c)
-    n0 = k2.macow_unit_inverse.launches
+    n0 = profiling.counts()
     out = k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=g)
     torch.cuda.synchronize()
-    assert k2.macow_unit_inverse.launches == n0 + 1
+    assert launches_since(n0)["macow_unit_inverse"] == 1
     ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
@@ -176,10 +177,10 @@ K2_ONE_SLICE_CASES = [(c, s, g) for c, s in [(96, 8), (128, 4)]
 def test_k2_one_slice_matches_plain(cuda, c, s, g):
     assert k2.slice_plan(c, mcf.default_hidden(c), 128, 2, 3, s, s) == 1
     y, h, weights, an1, an2 = _unit(c, 128, cuda, 200 + c, s=s)
-    n0 = k2.macow_unit_inverse.launches
+    n0 = profiling.counts()
     out = k2.macow_unit_inverse(y, h, weights, an1, an2, cluster=g)
     torch.cuda.synchronize()
-    assert k2.macow_unit_inverse.launches == n0 + 1
+    assert launches_since(n0)["macow_unit_inverse"] == 1
     ref = k2.macow_unit_inverse_plain(y, h, weights, an1, an2)
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
@@ -232,9 +233,9 @@ def test_batcher_on_the_card(cuda):
     f32 = SampleBatcher(params, spec, BatcherConfig(max_batch=4, max_delay_ms=200.0))
     u8 = SampleBatcher(params, spec, BatcherConfig(max_batch=4, max_delay_ms=200.0, wire_u8=True))
     try:
-        n0 = k2.macow_unit_inverse.launches
+        n0 = profiling.counts()
         solo = [f32.submit(x0, poke, seed, timeout=300) for x0, poke, seed in reqs]
-        assert k2.macow_unit_inverse.launches == n0 + 3 * 2 * 4   # 2 steps x 4 units per batch
+        assert launches_since(n0)["macow_unit_inverse"] == 3 * 2 * 4   # 2 steps x 4 units per batch
         handles = [f32.submit_async(x0, poke, seed) for x0, poke, seed in reqs]
         for h in handles:
             assert h.event.wait(300) and h.error is None
@@ -317,18 +318,16 @@ def test_custom_ops_equal_the_ctypes_launch(cuda, op):
         z, h, w, w1, b1 = _mcf(32, 128, "C", cuda, seed=21)
         args = (z, h, [w, w1, b1], "C", 1.0, "elu", None)
         direct = lambda: k1.launch(z, h, w, w1, b1, "C")   # noqa: E731
-        counter = k1.mcf_inverse
     else:
         y, h, weights, an1, an2 = _unit(32, 128, cuda, seed=22)
         args = (y, h, [x for ws in weights for x in ws], an1, an2, 1.0, "elu", None)
         direct = lambda: k2.launch(y, h, weights, an1, an2)   # noqa: E731
-        counter = k2.macow_unit_inverse
-    n0 = counter.launches
+    n0 = profiling.counts()
     via_op = getattr(torch.ops.ipoke, op)(*args)
-    assert counter.launches == n0 + 1
+    assert launches_since(n0)[op] == 1
     ref = direct()
     torch.cuda.synchronize()
-    assert counter.launches == n0 + 2
+    assert launches_since(n0)[op] == 2
     assert torch.equal(via_op, ref)
     torch.library.opcheck(getattr(torch.ops.ipoke, op).default, args,
                           test_utils=("test_schema", "test_faketensor"))
@@ -374,10 +373,10 @@ def test_exported_flow_artifact_runs_k2_on_the_card(cuda, tmp_path):
     x0 = torch.rand(2, 32, 32, 3, generator=gen, device=cuda) * 2 - 1
     poke = torch.randn(2, 32, 32, 2, generator=gen, device=cuda)
     z = art.draw_z([4, 5])
-    n0 = k2.macow_unit_inverse.launches
+    n0 = profiling.counts()
     got = art.run(art.params, x0, poke, z)
     torch.cuda.synchronize()
-    assert k2.macow_unit_inverse.launches == n0 + units
+    assert launches_since(n0)["macow_unit_inverse"] == units
     live = second_stage.forward_sample(params, spec, {"images": x0[:, None], "poke": poke},
                                        length=2, add_first_frame=True, z=z)[0]
     assert got.shape == (2, 3, 32, 32, 3) and bool(torch.isfinite(got).all())
@@ -405,10 +404,10 @@ def test_direct_distill_step_on_the_card(cuda):
     x0 = torch.zeros(2, 32, 32, 3, device=cuda)
     cond = second_stage.embed_cond(teacher, spec, x0, torch.ones(2, 32, 32, 2, device=cuda))
     z = prng.normal(prng.prng_key(1), (2, 8, 8, 16), cuda)
-    n0 = k2.macow_unit_inverse.launches
+    n0 = profiling.counts()
     state, logs = step(state, teacher, z, cond)
     torch.cuda.synchronize()
-    assert k2.macow_unit_inverse.launches == n0 + 4 * sum(spec.flow.num_steps)
+    assert launches_since(n0)["macow_unit_inverse"] == 4 * sum(spec.flow.num_steps)
     assert state["step"] == 1 and bool(torch.isfinite(logs["loss"]))
     assert float(logs["teacher_finite_frac"]) == 1.0
     moved = [not torch.equal(a, b) for a, b in zip(start, float_leaves(state["params"]))]
@@ -489,14 +488,14 @@ def test_gui_poke_on_the_card(cuda):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        n0 = k2.macow_unit_inverse.launches
+        n0 = profiling.counts()
         conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
         conn.request("POST", "/poke", body=json.dumps({"pokes": pokes, "length": 4}))
         resp = conn.getresponse()
         reply = json.loads(resp.read())
         conn.close()
         assert resp.status == 200 and len(reply["frames"]) == 5
-        assert k2.macow_unit_inverse.launches - n0 == 4 * sum(spec.flow.num_steps)
+        assert launches_since(n0)["macow_unit_inverse"] == 4 * sum(spec.flow.num_steps)
     finally:
         server.shutdown()
         server.server_close()
@@ -534,11 +533,11 @@ def test_fvd_run_on_the_card(cuda, tmp_path):
     path.write_text(yaml.safe_dump(config))
     scores = {}
     for dev in (cuda, "cpu"):
-        n0 = k2.macow_unit_inverse.launches
+        n0 = profiling.counts()
         experiment.main(["test", "-c", str(path), "-m", "m", "--mode", "fvd", "--device", str(dev)])
         with open(tmp_path / "logs" / "e" / "generated" / "m" / "metrics" / "fvd.json") as f:
             scores[str(dev)] = json.load(f)["FVD_UNPRETRAINED"]
-        assert k2.macow_unit_inverse.launches - n0 == (2 * 2 * 4 if dev == cuda else 0)
+        assert launches_since(n0)["macow_unit_inverse"] == (2 * 2 * 4 if dev == cuda else 0)
     card, cpu = scores[str(cuda)], scores["cpu"]
     assert card > 0 and abs(card - cpu) <= 1e-3 * cpu, scores
 
@@ -873,10 +872,10 @@ def test_converted_checkpoint_samples_on_the_card(cuda):
     gen = torch.Generator().manual_seed(0)
     batch = {"images": (torch.rand(2, 3, 64, 64, 3, generator=gen) * 2 - 1).to(cuda),
              "poke": (torch.randn(2, 64, 64, 2, generator=gen) * 0.5).to(cuda)}
-    n0 = k2.macow_unit_inverse.launches
+    n0 = profiling.counts()
     with torch.no_grad():
         card = second_stage.forward_sample(params, spec, batch, prng.prng_key(3))
-        assert k2.macow_unit_inverse.launches - n0 == 4 * sum(spec.flow.num_steps)
+        assert launches_since(n0)["macow_unit_inverse"] == 4 * sum(spec.flow.num_steps)
         plain = second_stage.forward_sample(
             params, replace(spec, flow=replace(spec.flow, mcf_backend="scan")), batch,
             prng.prng_key(3))
@@ -978,11 +977,12 @@ def test_variant_flows_sample_on_the_card(cuda, variant):
     vids = {}
     for backend, want in (("cuda_unit", (0, units * affine)), ("cuda", (4 * units * affine, 0)),
                           ("scan", (0, 0))):
-        n0 = (k1.mcf_inverse.launches, k2.macow_unit_inverse.launches)
+        n0 = profiling.counts()
         vids[backend] = second_stage.forward_sample(
             params, replace(spec, flow=replace(flow, mcf_backend=backend)), batch, z=z)
         torch.cuda.synchronize()
-        got = (k1.mcf_inverse.launches - n0[0], k2.macow_unit_inverse.launches - n0[1])
+        n = launches_since(n0)
+        got = (n["mcf_inverse"], n["macow_unit_inverse"])
         assert got == want, (backend, got, want)
     assert bool(torch.isfinite(vids["scan"]).all())
     for backend in ("cuda_unit", "cuda"):

@@ -19,8 +19,9 @@ from ipoke_tpu.flows import macow as jmacow
 from ipoke_tpu.flows import mcf as jmcf
 from ipoke_tpu_torch.ckpt.jax_bridge import _convert
 from ipoke_tpu_torch.flows import macow, mcf
+from ipoke_tpu_torch.ops.cuda import launches_since
 from ipoke_tpu_torch.ops.cuda import mcf_inverse as k1
-from ipoke_tpu_torch.ops.cuda import mcf_unit_inverse as k2
+from ipoke_tpu_torch.utils import profiling
 from torch_port_util import CPU, np_tree, port_flow_spec, set_wn_gains, t
 
 TOL = 2e-4
@@ -51,12 +52,13 @@ def test_mcf_inverse_module(order, cond):
     th = None if h is None else t(h)
     y_port, _ = mcf.forward(pt, t(x), h=th, order=order)
     _close(y_port, y)
+    before = profiling.counts()
     for backend in ("scan", "cuda"):
         out = mcf.inverse(pt, t(y), h=th, order=order, backend=backend)
         _close(out, ref_scan)
         _close(out, ref_pallas)
         _close(out, x, 5e-4)      # round trip, tests/test_pallas_mcf.py's bound
-    assert k1.mcf_inverse.launches == 0   # CPU tensors never launch
+    assert launches_since(before)["mcf_inverse"] == 0   # CPU tensors never launch
 
 
 @pytest.mark.parametrize("order", ["A", "B", "C", "D"])
@@ -106,9 +108,10 @@ def test_macow_unit_inverse_module(cond):
     th = None if h is None else t(h)
     y_port, _ = macow.macow_unit_forward(pt, t(x), th, port_flow_spec(jspec))
     _close(y_port, y)
+    before = profiling.counts()
     for backend in ("scan", "cuda", "cuda_unit"):
         out = macow.macow_unit_inverse(pt, t(np.asarray(y)), th, port_flow_spec(jspec, mcf_backend=backend))
         _close(out, ref_scan)
         _close(out, ref_pallas)
         _close(out, x, 5e-4)
-    assert k2.macow_unit_inverse.launches == 0
+    assert launches_since(before)["macow_unit_inverse"] == 0
